@@ -1,0 +1,301 @@
+"""AMG hierarchy containers and the classical (PMIS) host setup.
+
+Counterpart of ``omp_amg_tpu/amg/hierarchy.py``: ``Level``/``Hierarchy``,
+``_coarse_factor``, the host λmax estimators, the PMIS host branch of
+``amg_setup`` and ``hierarchy_stats``. The setup runs on the host exactly as
+the reference's does (numpy plus the native kernels of ``csrc/native.cc``),
+so the C/F split, P and A_c are the reference's. Only the device forms
+differ:
+
+- the fine A stays banded (``Dia``, diagonal-major), in bf16 when that cast
+  is lossless, else f32;
+- coarse A, P and R become ``Csr`` with f32 values, or bf16 at levels of
+  n ≥ 2²² rows (the reference's routed-ELL rule, fixed here);
+- ``dinv`` is f32 and ``lmax`` an f32 value. The Jacobi scale
+  ``s = ω·dinv`` with ω = 4/(3·1.1·λmax) is precomputed in float32, as the
+  reference's traced arithmetic computes it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..sparse.formats import (
+    Csr, Dia, csr_from_scipy, dia_to_device, dia_to_scipy,
+    ell_planes_from_dia, ell_planes_from_scipy, ell_planes_to_scipy,
+)
+from .params import AMGParams
+
+BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
+
+
+@dataclass(frozen=True)
+class Level:
+    a: Dia | Csr            # the level operator
+    dinv: torch.Tensor      # (n,) f32 inverse diagonal
+    p: Csr                  # prolongation to this level from level l+1
+    r: Csr                  # restriction = Pᵀ
+    lmax: float             # f32 value: largest eigenvalue of D⁻¹A
+    s: torch.Tensor         # (n,) f32 Jacobi scale ω·dinv
+
+
+@dataclass(frozen=True)
+class Hierarchy:
+    levels: Tuple[Level, ...]
+    coarse_chol: torch.Tensor   # (nc, nc) f32 lower Cholesky factor
+    params: AMGParams
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels) + 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.coarse_chol.device
+
+
+def check_supported(params: AMGParams) -> None:
+    """Raise for the parameters the port does not implement yet: it runs
+    the classical PMIS setup with the host Galerkin product, weighted
+    Jacobi, the V-cycle and the Cholesky coarse solve."""
+    unsupported = {
+        "coarsening": (params.coarsening, ("pmis", "auto")),
+        "rap": (params.rap, ("auto", "host")),
+        "smoother": (params.smoother, ("jacobi",)),
+        "cycle": (params.cycle, ("v",)),
+        "coarse_solver": (params.coarse_solver, ("chol",)),
+        "interp": (params.interp, ("extpi", "standard", "direct")),
+    }
+    for name, (value, ok) in unsupported.items():
+        if value not in ok:
+            raise NotImplementedError(
+                f"AMGParams.{name}={value!r} is not ported yet "
+                f"(supported: {', '.join(ok)})")
+
+
+def jacobi_scale(dinv: np.ndarray, lmax, params: AMGParams) -> np.ndarray:
+    """s = ω·dinv in float32, ω = params.omega or 4/(3·1.1·λmax) computed in
+    float32 exactly as the reference's traced ``4.0 / (3.0 * 1.1 * lmax)``
+    (the Python constant 3.0·1.1 rounds to f32, then f32 ops)."""
+    dinv32 = np.asarray(dinv, np.float32)
+    if params.omega is not None:
+        omega = np.float32(params.omega)
+    else:
+        omega = np.float32(4.0) / (np.float32(3.0 * 1.1) * np.float32(lmax))
+    return omega * dinv32
+
+
+def make_level(a, dinv, lmax, p: Csr, r: Csr, params: AMGParams,
+               device) -> Level:
+    """Level from its device operators and host f64/f32 ``dinv``, ``lmax``."""
+    s = jacobi_scale(dinv, lmax, params)
+    return Level(
+        a=a, p=p, r=r,
+        dinv=torch.tensor(np.asarray(dinv, np.float32), device=device),
+        lmax=float(np.float32(lmax)),
+        s=torch.from_numpy(s).to(device))
+
+
+def _coarse_factor(dense: np.ndarray, params: AMGParams) -> np.ndarray:
+    """Coarse-solve data from the densified coarsest operator (f64 host):
+    the lower Cholesky factor (two triangular solves per application)."""
+    return np.linalg.cholesky(dense)  # also validates SPD
+
+
+def _estimate_lmax_host(a_sp, dinv: np.ndarray, iters: int | None = None
+                        ) -> float:
+    """Power iteration on D⁻¹A with the deterministic hash01 start vector.
+    The matvec runs the native threaded CSR kernel when available (same
+    per-row accumulation order as scipy's csr_matvec); norms and dots stay in
+    numpy.
+
+    ``iters=None`` adapts to the level size: 20 power sweeps below 2²²
+    rows; at or above, a 12-step Lanczos on the symmetrized
+    D^{-1/2}·A·D^{-1/2} (same spectrum, 12 matvecs instead of 21, a closer
+    estimate)."""
+    from ..native import CsrMatvec
+    from .host_setup import hash01_np
+
+    apply_a = CsrMatvec(a_sp.indptr, a_sp.indices, a_sp.data,
+                        n_cols=a_sp.shape[1])
+    n = a_sp.shape[0]
+    if iters is None and n >= (1 << 22):
+        return _lanczos_lmax_host(apply_a, dinv, n)
+    if iters is None:
+        iters = 20
+    v = hash01_np(np.arange(n)).astype(np.float64) - 0.5
+    v /= np.linalg.norm(v)
+    for _ in range(iters):
+        w = dinv * apply_a(v)
+        v = w / np.linalg.norm(w)
+    w = dinv * apply_a(v)
+    return float(v @ w / (v @ v))
+
+
+def _lanczos_lmax_host(apply_a, dinv: np.ndarray, n: int, k: int = 12
+                       ) -> float:
+    """Largest Ritz value of D^{-1/2}·A·D^{-1/2} from a plain 3-term Lanczos
+    recurrence (no reorthogonalization: extreme-eigenvalue estimates at
+    k ≤ 12 are unaffected on these smooth SPD spectra)."""
+    from .host_setup import hash01_np
+
+    dsq = np.sqrt(dinv)
+
+    def op(v):
+        return dsq * apply_a(dsq * v)
+    v = hash01_np(np.arange(n)).astype(np.float64) - 0.5
+    v /= np.linalg.norm(v)
+    alphas: list = []
+    betas: list = []
+    v_prev = np.zeros_like(v)
+    beta = 0.0
+    for _ in range(k):
+        w = op(v)
+        alpha = float(v @ w)
+        w -= alpha * v + beta * v_prev
+        alphas.append(alpha)
+        beta = float(np.linalg.norm(w))
+        if beta == 0.0:   # exact invariant subspace
+            break
+        betas.append(beta)
+        v_prev, v = v, w / beta
+    m = len(alphas)
+    t = np.diag(alphas)
+    if m > 1:
+        off = np.asarray(betas[:m - 1])
+        t += np.diag(off, 1) + np.diag(off, -1)
+    return float(np.linalg.eigvalsh(t).max())
+
+
+def _value_dtype(n_rows: int) -> torch.dtype:
+    return torch.bfloat16 if n_rows >= BF16_MIN_ROWS else torch.float32
+
+
+def fine_operator(a, device) -> Dia | Csr:
+    """Device form of the fine operator: banded ``Dia`` stays banded (bf16
+    when lossless), anything else becomes f32 ``Csr``."""
+    if isinstance(a, Dia):
+        return dia_to_device(a, device)
+    return csr_from_scipy(a, torch.float32, device)
+
+
+@dataclass(frozen=True)
+class HostSetup:
+    """Host record of a setup (``amg_setup(..., keep_host=True)``): per level
+    the scipy operator A_l (f64; one more than the levels: the coarsest),
+    the C/F state and the scipy P_l."""
+
+    ops: list
+    states: list
+    p: list
+
+
+def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
+              keep_host: bool = False):
+    """Build the classical (PMIS) AMG hierarchy for ``a`` (a numpy-backed
+    ``Dia`` or a scipy sparse matrix) with its device forms on ``device``.
+
+    Returns ``Hierarchy``, and with ``keep_host=True`` also a ``HostSetup``.
+    """
+    import scipy.sparse as sp
+
+    from ..ops.rap import galerkin_product
+    from ..utils.memtune import tune_malloc
+    from . import host_setup as hs
+
+    check_supported(params)
+    device = torch.device(device)
+    tune_malloc()   # setup temporaries recycle heap pages (see memtune)
+
+    if isinstance(a, Dia):
+        # ELL planes + CSR straight from the diagonals (the reference's
+        # numpy-Dia fast path): the planes keep DIA layout (slot = diagonal
+        # index), which decides ext+i truncation ties
+        c0, v64, _ = ell_planes_from_dia(a, dtype=np.float64)
+        a_sp = ell_planes_to_scipy(c0, v64, a.n_rows)
+        cur_planes = (c0, v64.astype(np.float32))
+        del v64
+    else:
+        a_sp = sp.csr_matrix(a, dtype=np.float64)
+        cur_planes = None
+    a_lvl = fine_operator(a, device)
+
+    levels = []
+    host = HostSetup(ops=[a_sp], states=[], p=[])
+    while (a_sp.shape[0] > params.coarse_size
+           and len(levels) < params.max_levels - 1):
+        n = a_sp.shape[0]
+        if cur_planes is None:
+            cur_planes = ell_planes_from_scipy(a_sp, dtype=np.float32)[:2]
+        col, val = cur_planes
+        mask = hs.strength_mask_host(col, val, params.theta)
+        state = hs.pmis_host(col, mask, max_rounds=params.max_coarsen_rounds)
+        is_c = (state == hs.CPOINT)
+        cmap = np.cumsum(is_c.astype(np.int64)) - 1
+        nc = int(is_c.sum())
+        if nc == 0 or n / max(nc, 1) < params.min_coarsen_factor:
+            break
+        if params.interp == "standard":
+            p_col, p_val = hs.standard_interpolation_np(
+                col, val, mask, state, cmap, nc,
+                max_elements=params.interp_max_elements)
+        elif params.interp == "extpi":
+            p_col, p_val = hs.extpi_interpolation(
+                col, val, mask, state, cmap, nc,
+                max_elements=params.interp_max_elements)
+        else:
+            p_col, p_val = hs.direct_interpolation_np(col, val, mask, state,
+                                                      cmap, nc)
+        p_sp = ell_planes_to_scipy(p_col, p_val, nc)
+        pt_sp = p_sp.T.tocsr()
+        ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
+        dinv = 1.0 / a_sp.diagonal()
+        lmax = _estimate_lmax_host(a_sp, dinv)
+        if a_lvl is None:
+            a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device)
+        pr_dt = _value_dtype(n)
+        levels.append(make_level(a_lvl, dinv, lmax,
+                                 csr_from_scipy(p_sp, pr_dt, device),
+                                 csr_from_scipy(pt_sp, pr_dt, device),
+                                 params, device))
+        if keep_host:
+            host.states.append(state)
+            host.p.append(p_sp)
+            host.ops.append(ac_sp)
+        a_sp, a_lvl = ac_sp, None
+        cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
+
+    fac = _coarse_factor(np.asarray(a_sp.toarray(), np.float64), params)
+    hier = Hierarchy(levels=tuple(levels),
+                     coarse_chol=torch.from_numpy(
+                         fac.astype(np.float32)).to(device),
+                     params=params)
+    if keep_host:
+        return hier, host
+    return hier
+
+
+def hierarchy_stats(hier: Hierarchy, host: HostSetup | None = None) -> dict:
+    """Grid/operator complexities and per-level sizes."""
+    sizes = ([lv.a.n_rows for lv in hier.levels]
+             + [int(hier.coarse_chol.shape[0])])
+    out = {"levels": len(sizes), "sizes": sizes}
+    if host is not None:
+        nnzs = [int(op.nnz) for op in host.ops]
+        out["nnz"] = nnzs
+        out["operator_complexity"] = float(sum(nnzs) / nnzs[0])
+        out["grid_complexity"] = float(sum(sizes) / sizes[0])
+    return out
+
+
+def fine_host_operator(a):
+    """scipy CSR (f64) of the fine operator, for the certified residual."""
+    import scipy.sparse as sp
+
+    if isinstance(a, Dia):
+        return dia_to_scipy(a)
+    return sp.csr_matrix(a, dtype=np.float64)

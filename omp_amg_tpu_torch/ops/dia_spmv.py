@@ -1,0 +1,110 @@
+"""Banded (DIA) SpMV: the hand-written CUDA kernel, its plain twin, the
+wrapper and its launch counter.
+
+Counterpart of ``omp_amg_tpu/ops/pallas_spmv.py::_plane_kernel`` (entry
+points ``spmv_plane_dia``, ``residual_plane_dia``, ``jacobi_plane_dia`` and
+``spmv_dia_planes``); the kernel is ``omp_amg_tpu_torch/csrc/dia_spmv.cu``.
+Modes: spmv ``A·x``, residual ``b − A·x``, jacobi ``x + s ⊙ (b − A·x)``.
+Values are f32 or bf16; vectors and results are f32.
+
+The wrappers run the plain twin for CPU tensors only. For CUDA tensors they
+launch the kernel or raise; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..sparse.formats import Dia
+
+_MODES = {"spmv": 0, "residual": 1, "jacobi": 2}
+MAX_DIAG = 64        # kMaxDiag in csrc/dia_spmv.cu
+
+launches = 0         # kernel launches by the wrappers (CUDA only)
+
+
+def dia_spmv_plain(a: Dia, x: torch.Tensor, mode: str = "spmv", b=None,
+                   s=None) -> torch.Tensor:
+    """Plain PyTorch twin of every kernel mode: taps summed in ascending k
+    over a zero-padded x, as the reference's ``spmv_dia`` does."""
+    n = a.n_rows
+    y = torch.zeros(n, dtype=torch.float32, device=x.device)
+    if a.offsets:
+        lo = max(0, -min(a.offsets))
+        hi = max(0, max(a.offsets))
+        xp = torch.nn.functional.pad(x, (lo, hi))
+        for k, off in enumerate(a.offsets):
+            y = y + a.data[k].float() * xp[off + lo: off + lo + n]
+    if mode == "residual":
+        return b - y
+    if mode == "jacobi":
+        return x + s * (b - y)
+    return y
+
+
+def _check(a: Dia, x, vecs):
+    if not isinstance(a.data, torch.Tensor):
+        raise TypeError("device DIA operator expected (torch data); use "
+                        "sparse.formats.dia_to_device")
+    n = a.n_rows
+    if a.data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"DIA values must be float32 or bfloat16, got "
+                        f"{a.data.dtype}")
+    if a.data.dim() != 2 or a.data.shape[0] != len(a.offsets):
+        raise ValueError("DIA data must be (ndiag, n)")
+    if len(a.offsets) > MAX_DIAG:
+        raise ValueError(f"{len(a.offsets)} diagonals > kernel limit "
+                         f"{MAX_DIAG}")
+    for t in (x, *vecs):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"vectors must be float32 of shape ({n},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (a.data, x, *vecs):
+        if t.device != x.device:
+            raise ValueError("operator and vectors on different devices")
+        if not t.is_contiguous():
+            raise ValueError("DIA kernel operands must be contiguous")
+
+
+def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None):
+    vecs = tuple(v for v in (b, s) if v is not None)
+    _check(a, x, vecs)
+    if x.device.type == "cpu":
+        return dia_spmv_plain(a, x, mode, b, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"no DIA kernel for device {x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {x.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    from .._build import cuda_kernels
+
+    lib = cuda_kernels()
+    out = torch.empty(a.n_rows, dtype=torch.float32, device=x.device)
+    offsets = a.offsets_t
+    rc = lib.dia_spmv_launch(
+        _MODES[mode], int(a.data.dtype == torch.bfloat16), a.n_rows,
+        len(a.offsets), offsets.data_ptr(), a.data.data_ptr(), x.data_ptr(),
+        None if b is None else b.data_ptr(),
+        None if s is None else s.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dia_spmv kernel launch failed: cudaError {rc}")
+    global launches
+    launches += 1
+    return out
+
+
+def spmv(a: Dia, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x."""
+    return _apply(a, x, "spmv")
+
+
+def residual(a: Dia, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """r = b − A·x in one pass."""
+    return _apply(a, x, "residual", b=b)
+
+
+def jacobi(a: Dia, x: torch.Tensor, b: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    """x' = x + s ⊙ (b − A·x) in one pass (s = ω·D⁻¹); a fresh tensor."""
+    return _apply(a, x, "jacobi", b=b, s=s)

@@ -1,0 +1,86 @@
+"""The port's CUDA kernels on the card: each kernel × mode × value type
+against its plain twin on the same CUDA tensors, and the GPU solve's
+iteration counts against the port's CPU solve. Needs an NVIDIA GPU and nvcc;
+skipped elsewhere (the CPU runs only the twins). Run on the card with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import omp_amg_tpu_torch as amg
+from omp_amg_tpu_torch.ops import csr_spmv, dia_spmv
+from omp_amg_tpu_torch.sparse.formats import Csr, Dia
+
+pytestmark = pytest.mark.cuda
+
+PARAMS = amg.AMGParams(coarsening="pmis")
+
+
+@pytest.fixture(scope="module")
+def hier():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CPU runs the plain twins)")
+    return amg.amg_setup(amg.poisson3d_7pt(24), PARAMS, device="cuda")
+
+
+def _vec(rng, n):
+    return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+
+
+def _check(got, want, bound):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= bound * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi"])
+def test_dia_kernel_matches_twin(hier, mode, dtype):
+    lv = hier.levels[0]
+    a = Dia(data=lv.a.data.to(dtype).contiguous(), offsets=lv.a.offsets)
+    rng = np.random.default_rng(0)
+    x, b = _vec(rng, a.n_rows), _vec(rng, a.n_rows)
+    before = dia_spmv.launches
+    got = {"spmv": lambda: dia_spmv.spmv(a, x),
+           "residual": lambda: dia_spmv.residual(a, x, b),
+           "jacobi": lambda: dia_spmv.jacobi(a, x, b, lv.s)}[mode]()
+    assert dia_spmv.launches == before + 1
+    # explicit rounding in ascending tap order: bitwise the twin
+    _check(got, dia_spmv.dia_spmv_plain(a, x, mode, b, lv.s), 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "correct", "jacobi"])
+def test_csr_kernel_matches_twin(hier, mode, dtype):
+    rng = np.random.default_rng(1)
+    for lv in hier.levels:
+        ops = [lv.a] if mode == "jacobi" else [lv.p, lv.r]
+        for op in ops:
+            if not isinstance(op, Csr):
+                continue
+            a = Csr(op.indptr, op.indices, op.vals.to(dtype).contiguous(),
+                    op.n_cols)
+            x, v = _vec(rng, a.n_cols), _vec(rng, a.n_rows)
+            before = csr_spmv.launches
+            got = {"spmv": lambda: csr_spmv.spmv(a, x),
+                   "residual": lambda: csr_spmv.residual(a, x, v),
+                   "correct": lambda: csr_spmv.correct(a, x, v),
+                   "jacobi": lambda: csr_spmv.jacobi(a, x, v, lv.s)}[mode]()
+            assert csr_spmv.launches == before + 1
+            want = csr_spmv.csr_spmv_plain(a, x, mode, v=v, b=v, s=lv.s)
+            _check(got, want, 1e-5)
+
+
+def test_gpu_solve_matches_cpu_iterations(hier):
+    a = amg.poisson3d_7pt(24)
+    b = amg.default_rhs(a, seed=0)
+    infos = []
+    for device in ("cuda", "cpu"):
+        solver = amg.AMGSolver(a, PARAMS, device=device)
+        solver.solve(b, tol=1e-8)
+        infos.append(solver.last_info)
+    assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["rel_residual"] <= 1e-8

@@ -1,0 +1,36 @@
+"""The port stands alone: importing ``omp_amg_tpu_torch`` and running a small
+CPU solve loads neither JAX nor the reference package ``omp_amg_tpu``
+(the machine with the GPU has no JAX). Runs in a fresh interpreter, since
+this test process has both loaded."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = """
+import json, sys
+import torch
+torch.set_num_threads(2)
+import omp_amg_tpu_torch as amg
+a = amg.poisson3d_7pt(8)
+solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis"), device="cpu")
+solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "omp_amg_tpu"))
+print(json.dumps({"loaded": loaded, "info": {
+    k: solver.last_info[k] for k in ("iters", "outer_iters",
+                                      "rel_residual")}}))
+"""
+
+
+def test_port_imports_no_jax_and_solves():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["info"]["rel_residual"] <= 1e-8
+    assert res["info"]["iters"] > 0
