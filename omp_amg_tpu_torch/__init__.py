@@ -1,9 +1,15 @@
 """omp_amg_tpu_torch — the PyTorch/CUDA port of omp_amg_tpu.
 
-Classical (PMIS) AMG-PCG on one GPU: the host setup of the reference
-(numpy plus ``csrc/native.cc``), and a device solve whose sparse work runs
-through two hand-written CUDA kernels for Hopper (``csrc/dia_spmv.cu`` for
-the banded fine level, ``csrc/csr_spmv.cu`` for every coarse A, P and R).
+AMG-PCG on one GPU, on two paths, each with the reference's host setup
+(numpy plus ``csrc/native.cc``) and a device solve whose sparse work runs
+through three hand-written CUDA kernels for Hopper:
+
+- classical (PMIS) coarsening: ``csrc/dia_spmv.cu`` for the banded fine
+  level, ``csrc/csr_spmv.cu`` for every coarse A, P and R;
+- structured semicoarsening (``grid=``): ``csrc/const_stencil.cu`` for a
+  matrix-free constant-stencil fine level, ``csrc/dia_spmv.cu`` for the
+  banded Galerkin levels, and the grid transfers as torch slices.
+
 On CPU tensors the kernels' plain PyTorch twins run instead.
 
 Imports torch, numpy and scipy; never JAX or ``omp_amg_tpu``.
@@ -11,10 +17,14 @@ Imports torch, numpy and scipy; never JAX or ``omp_amg_tpu``.
 
 from .amg.hierarchy import Hierarchy, Level, amg_setup, hierarchy_stats  # noqa: F401
 from .amg.params import AMGParams  # noqa: F401
+from .amg.structured import GridProlong, GridRestrict  # noqa: F401
 from .amg.vcycle import vcycle  # noqa: F401
 from .interop import hierarchy_from_numpy  # noqa: F401
-from .problems.poisson import default_rhs, poisson3d_7pt, stencil_to_dia  # noqa: F401
+from .problems.poisson import (  # noqa: F401
+    aniso2d_9pt, default_rhs, poisson2d_5pt, poisson3d_7pt, poisson3d_27pt,
+    stencil_to_dia,
+)
 from .solver import AMGSolver  # noqa: F401
 from .solvers.cg import amg_pcg, pcg  # noqa: F401
 from .solvers.ir import solve_ir  # noqa: F401
-from .sparse.formats import Csr, Dia, dia_to_scipy  # noqa: F401
+from .sparse.formats import ConstDia, Csr, Dia, dia_to_scipy  # noqa: F401

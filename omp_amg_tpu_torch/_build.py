@@ -123,5 +123,10 @@ def cuda_kernels() -> ctypes.CDLL:
         # mode, bf16, n, ndiag, offsets, data, x, b, s, out, stream
         lib.dia_spmv_launch.argtypes = [i32, i32, i64, i32] + [p] * 7
         lib.dia_spmv_launch.restype = i32
+        # mode, nz, ny, nx, ntaps, taps (host), coeffs (host), s, x, b, p,
+        # out, stream
+        lib.const_stencil_launch.argtypes = ([i32, i64, i64, i64, i32, p, p,
+                                              ctypes.c_float] + [p] * 5)
+        lib.const_stencil_launch.restype = i32
         _cuda_lib = lib
     return _cuda_lib

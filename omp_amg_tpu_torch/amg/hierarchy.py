@@ -1,19 +1,24 @@
-"""AMG hierarchy containers and the classical (PMIS) host setup.
+"""AMG hierarchy containers and the host setups.
 
 Counterpart of ``omp_amg_tpu/amg/hierarchy.py``: ``Level``/``Hierarchy``,
-``_coarse_factor``, the host λmax estimators, the PMIS host branch of
-``amg_setup`` and ``hierarchy_stats``. The setup runs on the host exactly as
-the reference's does (numpy plus the native kernels of ``csrc/native.cc``),
-so the C/F split, P and A_c are the reference's. Only the device forms
-differ:
+``_coarse_factor``, the host λmax estimators, the PMIS host branch and the
+structured host branch of ``amg_setup``, and ``hierarchy_stats``. Both
+setups run on the host exactly as the reference's do (numpy plus the native
+kernels of ``csrc/native.cc``), so the coarsening, P and A_c are the
+reference's. Only the device forms differ:
 
-- the fine A stays banded (``Dia``, diagonal-major), in bf16 when that cast
-  is lossless, else f32;
-- coarse A, P and R become ``Csr`` with f32 values, or bf16 at levels of
-  n ≥ 2²² rows (the reference's routed-ELL rule, fixed here);
-- ``dinv`` is f32 and ``lmax`` an f32 value. The Jacobi scale
+- PMIS: the fine A stays banded (``Dia``, diagonal-major), in bf16 when
+  that cast is lossless, else f32; coarse A, P and R become ``Csr`` with f32
+  values, or bf16 at levels of n ≥ 2²² rows (the reference's routed-ELL
+  rule, fixed here);
+- structured: a masked-constant 3D level becomes a ``ConstDia`` (the
+  reference's detection rule), every other level a ``Dia`` as above; P and R
+  are the grid transfers. The reference's TPU-only ``PlaneDia`` form is not
+  needed: the diagonal-major ``Dia`` serves on the GPU;
+- ``dinv`` is f32 on the host and ``lmax`` an f32 value. The Jacobi scale
   ``s = ω·dinv`` with ω = 4/(3·1.1·λmax) is precomputed in float32, as the
-  reference's traced arithmetic computes it.
+  reference's traced arithmetic computes it; on a ``ConstDia`` level, whose
+  diagonal is constant, it is one number.
 """
 
 from __future__ import annotations
@@ -25,22 +30,26 @@ import numpy as np
 import torch
 
 from ..sparse.formats import (
-    Csr, Dia, csr_from_scipy, dia_to_device, dia_to_scipy,
-    ell_planes_from_dia, ell_planes_from_scipy, ell_planes_to_scipy,
+    ConstDia, Csr, Dia, csr_from_scipy, dia_planes_from_scipy, dia_to_device,
+    dia_to_scipy, ell_planes_from_dia, ell_planes_from_scipy,
+    ell_planes_to_scipy, to_const_dia,
 )
 from .params import AMGParams
+from .structured import GridProlong, GridRestrict
 
 BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
 
 
 @dataclass(frozen=True)
 class Level:
-    a: Dia | Csr            # the level operator
-    dinv: torch.Tensor      # (n,) f32 inverse diagonal
-    p: Csr                  # prolongation to this level from level l+1
-    r: Csr                  # restriction = Pᵀ
-    lmax: float             # f32 value: largest eigenvalue of D⁻¹A
-    s: torch.Tensor         # (n,) f32 Jacobi scale ω·dinv
+    a: Dia | Csr | ConstDia     # the level operator
+    dinv: np.ndarray            # (n,) f32 inverse diagonal, host only: the
+                                # smoothers read s
+    p: Csr | GridProlong        # prolongation to this level from level l+1
+    r: Csr | GridRestrict       # restriction = Pᵀ
+    lmax: float                 # f32 value: largest eigenvalue of D⁻¹A
+    s: torch.Tensor | float     # Jacobi scale ω·dinv: (n,) f32, or one f32
+                                # value (a float) on a ConstDia level
 
 
 @dataclass(frozen=True)
@@ -60,10 +69,10 @@ class Hierarchy:
 
 def check_supported(params: AMGParams) -> None:
     """Raise for the parameters the port does not implement yet: it runs
-    the classical PMIS setup with the host Galerkin product, weighted
-    Jacobi, the V-cycle and the Cholesky coarse solve."""
+    the classical PMIS and the structured setups with the host Galerkin
+    products, weighted Jacobi, the V-cycle and the Cholesky coarse solve."""
     unsupported = {
-        "coarsening": (params.coarsening, ("pmis", "auto")),
+        "coarsening": (params.coarsening, ("pmis", "auto", "structured")),
         "rap": (params.rap, ("auto", "host")),
         "smoother": (params.smoother, ("jacobi",)),
         "cycle": (params.cycle, ("v",)),
@@ -89,15 +98,19 @@ def jacobi_scale(dinv: np.ndarray, lmax, params: AMGParams) -> np.ndarray:
     return omega * dinv32
 
 
-def make_level(a, dinv, lmax, p: Csr, r: Csr, params: AMGParams,
-               device) -> Level:
+def make_level(a, dinv, lmax, p, r, params: AMGParams, device) -> Level:
     """Level from its device operators and host f64/f32 ``dinv``, ``lmax``."""
     s = jacobi_scale(dinv, lmax, params)
+    if isinstance(a, ConstDia):
+        if not np.all(s == s[0]):
+            raise ValueError("a ConstDia level needs a constant diagonal")
+        s_dev = float(s[0])
+    else:
+        s_dev = torch.from_numpy(s).to(device)
     return Level(
         a=a, p=p, r=r,
-        dinv=torch.tensor(np.asarray(dinv, np.float32), device=device),
-        lmax=float(np.float32(lmax)),
-        s=torch.from_numpy(s).to(device))
+        dinv=np.asarray(dinv, np.float32),
+        lmax=float(np.float32(lmax)), s=s_dev)
 
 
 def _coarse_factor(dense: np.ndarray, params: AMGParams) -> np.ndarray:
@@ -118,22 +131,14 @@ def _estimate_lmax_host(a_sp, dinv: np.ndarray, iters: int | None = None
     D^{-1/2}·A·D^{-1/2} (same spectrum, 12 matvecs instead of 21, a closer
     estimate)."""
     from ..native import CsrMatvec
-    from .host_setup import hash01_np
 
     apply_a = CsrMatvec(a_sp.indptr, a_sp.indices, a_sp.data,
                         n_cols=a_sp.shape[1])
     n = a_sp.shape[0]
     if iters is None and n >= (1 << 22):
         return _lanczos_lmax_host(apply_a, dinv, n)
-    if iters is None:
-        iters = 20
-    v = hash01_np(np.arange(n)).astype(np.float64) - 0.5
-    v /= np.linalg.norm(v)
-    for _ in range(iters):
-        w = dinv * apply_a(v)
-        v = w / np.linalg.norm(w)
-    w = dinv * apply_a(v)
-    return float(v @ w / (v @ v))
+    return _estimate_lmax_apply(apply_a, dinv, n,
+                                iters=20 if iters is None else iters)
 
 
 def _lanczos_lmax_host(apply_a, dinv: np.ndarray, n: int, k: int = 12
@@ -187,7 +192,7 @@ def fine_operator(a, device) -> Dia | Csr:
 class HostSetup:
     """Host record of a setup (``amg_setup(..., keep_host=True)``): per level
     the scipy operator A_l (f64; one more than the levels: the coarsest),
-    the C/F state and the scipy P_l."""
+    and for the PMIS setup the C/F state and the scipy P_l."""
 
     ops: list
     states: list
@@ -195,9 +200,14 @@ class HostSetup:
 
 
 def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
-              keep_host: bool = False):
-    """Build the classical (PMIS) AMG hierarchy for ``a`` (a numpy-backed
-    ``Dia`` or a scipy sparse matrix) with its device forms on ``device``.
+              keep_host: bool = False, grid=None):
+    """Build the AMG hierarchy for ``a`` (a numpy-backed ``Dia`` or a scipy
+    sparse matrix) with its device forms on ``device``.
+
+    ``grid`` (extents, C order) enables the structured coarsening for
+    tensor-grid stencil operators. Selection follows ``params.coarsening``,
+    as in the reference: "auto" is structured iff ``grid`` is given and the
+    operator is banded, else classical (PMIS).
 
     Returns ``Hierarchy``, and with ``keep_host=True`` also a ``HostSetup``.
     """
@@ -210,6 +220,16 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
     check_supported(params)
     device = torch.device(device)
     tune_malloc()   # setup temporaries recycle heap pages (see memtune)
+
+    structured = (params.coarsening == "structured"
+                  or (params.coarsening == "auto" and grid is not None
+                      and isinstance(a, Dia)))
+    if structured:
+        n = a.n_rows if isinstance(a, Dia) else a.shape[0]
+        if grid is None or int(np.prod(grid)) != n:
+            raise ValueError("structured coarsening requires a matching grid")
+        return _amg_setup_structured(a, tuple(int(g) for g in grid), params,
+                                     device, keep_host)
 
     if isinstance(a, Dia):
         # ELL planes + CSR straight from the diagonals (the reference's
@@ -270,6 +290,113 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
         cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
 
     fac = _coarse_factor(np.asarray(a_sp.toarray(), np.float64), params)
+    hier = Hierarchy(levels=tuple(levels),
+                     coarse_chol=torch.from_numpy(
+                         fac.astype(np.float32)).to(device),
+                     params=params)
+    if keep_host:
+        return hier, host
+    return hier
+
+
+def _estimate_lmax_apply(apply_fn, dinv: np.ndarray, n: int,
+                         iters: int = 20, dtype=np.float64) -> float:
+    """Power iteration on D⁻¹A through ``apply_fn`` in ``dtype`` (f64 for
+    PMIS; the structured setup runs it in float32, as the reference does),
+    from the deterministic hash01 start vector."""
+    from .host_setup import hash01_np
+
+    dinv = np.asarray(dinv, dtype)
+    v = hash01_np(np.arange(n)).astype(dtype) - np.dtype(dtype).type(0.5)
+    v /= np.linalg.norm(v)
+    for _ in range(iters):
+        w = dinv * apply_fn(v)
+        v = w / np.linalg.norm(w)
+    w = dinv * apply_fn(v)
+    return float(v @ w / (v @ v))
+
+
+def _amg_setup_structured(a, dims, params: AMGParams, device,
+                          keep_host: bool):
+    """Structured setup: semicoarsen the strong axes, grid transfers,
+    Galerkin RAP on f64 numpy DIA planes (:func:`comb_rap.structured_rap`;
+    the exact sparse product only when its probe rejects the radius-1
+    contract). λmax runs in float32 on the f32 planes, through the native
+    kernel from 2¹⁸ rows (as the reference: it sets ω, hence the iteration
+    counts)."""
+    import scipy.sparse as sp
+
+    from .. import native
+    from ..ops.const_stencil import MAX_TAPS
+    from ..ops.dia_spmv import MAX_DIAG
+    from ..ops.rap import galerkin_product
+    from . import comb_rap as cr
+    from .structured import prolong_to_scipy, strong_axes
+
+    if isinstance(a, Dia):
+        offsets = list(a.offsets)
+        data = np.asarray(a.data, dtype=np.float64)
+        a_sp = fine_host_operator(a) if keep_host else None
+    else:
+        a_sp = sp.csr_matrix(a, dtype=np.float64)
+        offsets, data = dia_planes_from_scipy(a_sp)
+    host = HostSetup(ops=[a_sp], states=[], p=[])
+    levels = []
+    n = int(np.prod(dims))
+    while n > params.coarse_size and len(levels) < params.max_levels - 1:
+        axes = strong_axes((offsets, data), dims, params.theta)
+        if not any(axes):
+            break
+        coarse_dims = tuple((d + 1) // 2 if c else d
+                            for d, c in zip(dims, axes))
+        p = GridProlong(fine_shape=dims, coarse_shape=coarse_dims,
+                        coarsened=axes)
+        r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
+                         coarsened=axes)
+        try:
+            offs_c, data_c = cr.structured_rap(offsets, data, dims,
+                                               coarse_dims, axes)
+        except ValueError:
+            # operator outside the radius-1 contract → exact sparse product
+            cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
+            offs_c, data_c = dia_planes_from_scipy(
+                galerkin_product(cur_sp, prolong_to_scipy(p)))
+        dinv = 1.0 / data[offsets.index(0)]
+        data_f = np.ascontiguousarray(data, np.float32)
+        if n >= (1 << 18) and native.available():
+            def apply_fn(v):
+                return native.dia_apply(offsets, data_f, v)
+        else:   # small levels: the per-call OpenMP spawn outweighs the work
+            def apply_fn(v):
+                return cr.dia_apply(offsets, data_f, v)
+        lmax = _estimate_lmax_apply(apply_fn, dinv, n, dtype=np.float32)
+        host_dia = Dia(data=data_f, offsets=tuple(offsets), dims=dims)
+        a_lvl = (to_const_dia(host_dia, device)
+                 if params.const_stencil != "off" else None)
+        terms, limit, kernel = ((len(a_lvl.operand[1]), MAX_TAPS, "stencil")
+                                if a_lvl is not None else
+                                (len(offsets), MAX_DIAG, "DIA"))
+        if terms > limit:
+            raise ValueError(f"structured level {len(levels)} has {terms} "
+                             f"diagonals, more than the {kernel} kernel's "
+                             f"{limit}")
+        if a_lvl is None:
+            a_lvl = dia_to_device(host_dia, device)
+        levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
+        offsets, data, dims = offs_c, np.asarray(data_c), coarse_dims
+        n = int(np.prod(dims))
+        if keep_host:
+            host.ops.append(dia_to_scipy(Dia(data=data,
+                                             offsets=tuple(offsets))))
+
+    # densify the coarsest level directly from its diagonals
+    dense = np.zeros((n, n), dtype=np.float64)
+    for k, off in enumerate(offsets):
+        i0, i1 = max(0, -off), min(n, n - off)
+        if i1 > i0:
+            idx = np.arange(i0, i1)
+            dense[idx, idx + off] = data[k, i0:i1]
+    fac = _coarse_factor(dense, params)
     hier = Hierarchy(levels=tuple(levels),
                      coarse_chol=torch.from_numpy(
                          fac.astype(np.float32)).to(device),

@@ -1,8 +1,11 @@
 // Hand-written banded (DIA) SpMV for Hopper (sm_90a).
 //
-// Replaces omp_amg_tpu/ops/pallas_spmv.py::_plane_kernel. It applies the
-// banded fine-level A of the classical hierarchy, in the V-cycle and in
-// PCG's q = A·p, with the TPU kernel's fused epilogues:
+// Replaces omp_amg_tpu/ops/pallas_spmv.py::_plane_kernel and
+// omp_amg_tpu/ops/pallas_spmv.py::_dia_kernel: the same banded product for
+// any offsets, where the TPU needed a second kernel for operators without
+// its 3D plane layout (2D grids). It applies the banded fine-level A of the
+// classical hierarchy and every banded level of the structured one, in the
+// V-cycle and in PCG's q = A·p, with the TPU kernel's fused epilogues:
 //
 //   mode 0  spmv      out = A·x
 //   mode 1  residual  out = b − A·x

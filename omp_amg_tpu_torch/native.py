@@ -1,13 +1,13 @@
 """ctypes bindings for the host setup kernels of ``csrc/native.cc``.
 
-Counterpart of ``omp_amg_tpu/native.py``, cut to the entry points the PMIS
-host setup calls: ``strength_mask``, ``pmis``, ``extpi_interp``, ``spgemm``,
-``CsrMatvec`` and ``ell_fill``. numpy only. The library is built on first use
-by :mod:`omp_amg_tpu_torch._build` (never the committed
+Counterpart of ``omp_amg_tpu/native.py``, cut to the entry points the host
+setups call: ``strength_mask``, ``pmis``, ``extpi_interp``, ``spgemm``,
+``CsrMatvec`` and ``ell_fill`` (PMIS); ``dia_apply``, ``prolong``,
+``restrict`` and ``rap_stencil`` (structured). numpy only. The library is
+built on first use by :mod:`omp_amg_tpu_torch._build` (never the committed
 ``csrc/libamgnative.so``). As in the reference, each entry point returns
-None (``spgemm`` and ``CsrMatvec`` run scipy) when the library could not be
-built, and the callers in :mod:`omp_amg_tpu_torch.amg.host_setup` then run
-their numpy twins; ``available()`` says which ran and ``build_error()`` why.
+None, or runs its numpy twin, when the library could not be built;
+``available()`` says which ran and ``build_error()`` why.
 """
 
 from __future__ import annotations
@@ -60,6 +60,17 @@ def _load():
     lib.pmis_f32.restype = i64
     lib.ell_fill_f32.argtypes = [i64, i64, i64p, i32p, f64p, i32p, f32p]
     lib.ell_fill_f32.restype = None
+    lib.dia_apply_f64.argtypes = [i64, i64, i64p, f64p, f64p, f64p]
+    lib.dia_apply_f64.restype = None
+    lib.dia_apply_f32.argtypes = [i64, i64, i64p, f32p, f32p, f32p]
+    lib.dia_apply_f32.restype = None
+    lib.prolong_last_f64.argtypes = [i64, i64, i64, f64p, f64p]
+    lib.prolong_last_f64.restype = None
+    lib.restrict_last_f64.argtypes = [i64, i64, i64, f64p, f64p]
+    lib.restrict_last_f64.restype = None
+    lib.rap_stencil_f64.argtypes = [i64, i64p, i64p, i64p, i64, i64p, i64p,
+                                    f64p, f64p]
+    lib.rap_stencil_f64.restype = None
     _lib = lib
     return _lib
 
@@ -192,6 +203,111 @@ class CsrMatvec:
         self.lib.csr_matvec_f64(self.n, self.indptr, self.indices, self.data,
                                 np.ascontiguousarray(x, np.float64), y)
         return y
+
+
+def dia_apply(offsets, data: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Banded matvec (data[k, i] multiplies x[i + offsets[k]]); f32 operands
+    stay f32. numpy twin when the lib is missing."""
+    lib = _load()
+    if lib is None:
+        from .amg.comb_rap import dia_apply as np_apply
+
+        return np_apply(list(offsets), data, x)
+    n = x.shape[0]
+    offs = np.ascontiguousarray(offsets, np.int64)
+    if data.dtype == np.float32:
+        y = np.empty(n, np.float32)
+        lib.dia_apply_f32(n, len(offsets), offs,
+                          np.ascontiguousarray(data, np.float32),
+                          np.ascontiguousarray(x, np.float32), y)
+        return y
+    y = np.empty(n, np.float64)
+    lib.dia_apply_f64(n, len(offsets), offs,
+                      np.ascontiguousarray(data, np.float64),
+                      np.ascontiguousarray(x, np.float64), y)
+    return y
+
+
+def _apply_axis(x: np.ndarray, axis: int, fn, n_out: int) -> np.ndarray:
+    """Apply a last-axis kernel along ``axis`` of a C-order ndarray."""
+    moved = np.ascontiguousarray(np.moveaxis(x, axis, -1), np.float64)
+    rows = int(np.prod(moved.shape[:-1], dtype=np.int64))
+    n_in = moved.shape[-1]
+    out = np.empty(moved.shape[:-1] + (n_out,), np.float64)
+    fn(rows, n_in, n_out, moved.reshape(rows, n_in), out.reshape(rows, n_out))
+    return np.moveaxis(out, -1, axis)
+
+
+def prolong(xc: np.ndarray, fine_shape, coarse_shape, coarsened):
+    """f64 tensor-product linear interpolation, coarse → fine grid."""
+    lib = _load()
+    if lib is None:
+        from .amg.comb_rap import prolong as np_prolong
+
+        return np_prolong(xc, fine_shape, coarse_shape, coarsened)
+    x = xc.reshape(coarse_shape)
+    for ax, c in enumerate(coarsened):
+        if c:
+            x = _apply_axis(x, ax, lib.prolong_last_f64, fine_shape[ax])
+    return x.reshape(-1)
+
+
+def restrict(xf: np.ndarray, fine_shape, coarse_shape, coarsened):
+    """f64 transpose of :func:`prolong`, fine → coarse grid."""
+    lib = _load()
+    if lib is None:
+        from .amg.comb_rap import restrict as np_restrict
+
+        return np_restrict(xf, fine_shape, coarse_shape, coarsened)
+    x = xf.reshape(fine_shape)
+    for ax, c in enumerate(coarsened):
+        if c:
+            x = _apply_axis(x, ax, lib.restrict_last_f64, coarse_shape[ax])
+    return x.reshape(-1)
+
+
+def rap_stencil(offsets, data: np.ndarray, dims, coarse_dims, coarsened):
+    """Fused direct Galerkin RAP of a radius-1 banded operator (csrc
+    ``rap_stencil_f64``). Returns (offsets_c sorted, data_c (k, nc)) with
+    all-zero taps dropped, or None when the lib is missing or an offset does
+    not decompose on the grid."""
+    from itertools import product as iproduct
+
+    from .amg.comb_rap import _balanced_deltas
+    from .amg.structured import grid_strides
+
+    lib = _load()
+    if lib is None:
+        return None
+    d = len(dims)
+    nc = int(np.prod(coarse_dims, dtype=np.int64))
+    # balanced per-axis decomposition of each offset (valid because the
+    # masked-zero invariant keeps every stored tap non-wrapping)
+    deltas = _balanced_deltas(offsets, dims)
+    if deltas is None:
+        return None
+    out = np.zeros((3 ** d) * nc, np.float64)
+    lib.rap_stencil_f64(
+        d, np.ascontiguousarray(dims, np.int64),
+        np.ascontiguousarray(coarse_dims, np.int64),
+        np.ascontiguousarray([1 if c else 0 for c in coarsened], np.int64),
+        len(offsets), np.ascontiguousarray(offsets, np.int64),
+        np.ascontiguousarray(deltas.ravel(), np.int64),
+        np.ascontiguousarray(data, np.float64), out)
+    out = out.reshape(3 ** d, nc)
+    cstrides = grid_strides(coarse_dims)
+    entries = []
+    for ti, delta in enumerate(iproduct((-1, 0, 1), repeat=d)):
+        if any(abs(dl) >= cd for dl, cd in zip(delta, coarse_dims)):
+            continue
+        if not np.any(out[ti]):
+            continue
+        entries.append((sum(dl * st for dl, st in zip(delta, cstrides)),
+                        out[ti]))
+    entries.sort(key=lambda e: e[0])
+    offs_c = [e[0] for e in entries]
+    data_c = np.stack([e[1] for e in entries]) if entries else out[:0]
+    return offs_c, data_c
 
 
 def ell_fill(a_csr, k: int):

@@ -1,11 +1,15 @@
 """Banded (DIA) SpMV: the hand-written CUDA kernel, its plain twin, the
 wrapper and its launch counter.
 
-Counterpart of ``omp_amg_tpu/ops/pallas_spmv.py::_plane_kernel`` (entry
-points ``spmv_plane_dia``, ``residual_plane_dia``, ``jacobi_plane_dia`` and
-``spmv_dia_planes``); the kernel is ``omp_amg_tpu_torch/csrc/dia_spmv.cu``.
-Modes: spmv ``A·x``, residual ``b − A·x``, jacobi ``x + s ⊙ (b − A·x)``.
-Values are f32 or bf16; vectors and results are f32.
+Counterpart of two TPU kernels of ``omp_amg_tpu/ops/pallas_spmv.py``:
+``_plane_kernel`` (entry points ``spmv_plane_dia``, ``residual_plane_dia``,
+``jacobi_plane_dia`` and ``spmv_dia_planes``: 3D operators with the plane
+layout) and ``_dia_kernel`` (``spmv_dia_pallas``: banded operators without
+it, such as 2D grids, of at least three row blocks). Both compute the same
+banded product; they differ only in TPU memory layout, so one kernel,
+``omp_amg_tpu_torch/csrc/dia_spmv.cu``, serves any offsets. Modes: spmv
+``A·x``, residual ``b − A·x``, jacobi ``x + s ⊙ (b − A·x)``. Values are f32
+or bf16; vectors and results are f32.
 
 The wrappers run the plain twin for CPU tensors only. For CUDA tensors they
 launch the kernel or raise; nothing falls back.

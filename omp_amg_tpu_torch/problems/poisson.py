@@ -45,6 +45,13 @@ def stencil_to_dia(dims: Sequence[int],
     return Dia(data=data, offsets=tuple(offsets), dims=dims)
 
 
+def poisson2d_5pt(nx: int, ny: int | None = None) -> Dia:
+    ny = nx if ny is None else ny
+    taps = {(0, 0): 4.0, (0, 1): -1.0, (0, -1): -1.0, (1, 0): -1.0,
+            (-1, 0): -1.0}
+    return stencil_to_dia((ny, nx), taps)
+
+
 def poisson3d_7pt(nx: int, ny: int | None = None,
                   nz: int | None = None) -> Dia:
     ny = nx if ny is None else ny
@@ -56,6 +63,34 @@ def poisson3d_7pt(nx: int, ny: int | None = None,
             tap[ax] = s
             taps[tuple(tap)] = -1.0
     return stencil_to_dia((nz, ny, nx), taps)
+
+
+def poisson3d_27pt(nx: int, ny: int | None = None,
+                   nz: int | None = None) -> Dia:
+    """27-point 3D Laplacian (all 26 neighbours −1, centre 26)."""
+    ny = nx if ny is None else ny
+    nz = nx if nz is None else nz
+    taps = {}
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                taps[(dz, dy, dx)] = 26.0 if dz == dy == dx == 0 else -1.0
+    return stencil_to_dia((nz, ny, nx), taps)
+
+
+def aniso2d_9pt(nx: int, ny: int | None = None, eps: float = 1e-3) -> Dia:
+    """−ε·u_xx − u_yy with bilinear quad FEM → 9-point stencil:
+    A = ε·(M_y ⊗ K_x) + (K_y ⊗ M_x) with 1D stiffness K = tridiag(−1, 2,
+    −1)/h and mass M = tridiag(1, 4, 1)·h/6."""
+    ny = nx if ny is None else ny
+    h = 1.0 / (nx + 1)
+    k1 = {0: 2.0 / h, 1: -1.0 / h, -1: -1.0 / h}
+    m1 = {0: 4.0 * h / 6.0, 1: h / 6.0, -1: h / 6.0}
+    taps = {}
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            taps[(dy, dx)] = eps * m1[dy] * k1[dx] + k1[dy] * m1[dx]
+    return stencil_to_dia((ny, nx), taps)
 
 
 def default_rhs(a: Dia, kind: str = "random", seed: int = 0) -> torch.Tensor:

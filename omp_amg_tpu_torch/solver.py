@@ -5,9 +5,11 @@
 
     a = amg.poisson3d_7pt(128)
     solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis"),
-                           device="cuda")
+                           device="cuda")          # classical (PMIS)
     x = solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
     print(solver.last_info)
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128, 128, 128),
+                           device="cuda")          # structured
 
 The device is an argument; ``device="cuda"`` without CUDA raises, and
 nothing moves to the CPU on its own.
@@ -40,8 +42,9 @@ def resolve_device(device) -> torch.device:
 
 
 class AMGSolver:
-    """AMG-preconditioned CG solver with amortized setup (serial, classical
-    PMIS hierarchy, f64-certified by default)."""
+    """AMG-preconditioned CG solver with amortized setup (serial; classical
+    PMIS or, with ``grid=``, structured hierarchy; f64-certified by
+    default)."""
 
     def __init__(self, a, params: AMGParams = AMGParams(), *, device="cpu",
                  grid=None, mesh=None, flavor: str = "host",
@@ -49,12 +52,13 @@ class AMGSolver:
         if mesh is not None:
             raise NotImplementedError("distributed solve (mesh=) is not "
                                       "ported yet")
-        if grid is not None and params.coarsening != "pmis":
-            raise NotImplementedError("structured coarsening (grid=) is not "
-                                      "ported yet; pass "
-                                      "AMGParams(coarsening='pmis')")
         if flavor != "host":
             raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
+        if refreshable and grid is not None:
+            # the reference drops the flag silently on its structured mesh
+            # path and fails later in refresh(); refuse it here instead
+            raise ValueError("refreshable=True records the classical (PMIS) "
+                             "setup; it does not combine with grid=")
         if refreshable:
             raise NotImplementedError("refreshable=True is not ported yet")
         check_supported(params)
@@ -62,7 +66,8 @@ class AMGSolver:
         self.a = a
         self.params = params
         self.last_info: dict = {}
-        self.hierarchy: Hierarchy = amg_setup(a, params, device=self.device)
+        self.hierarchy: Hierarchy = amg_setup(a, params, device=self.device,
+                                              grid=grid)
         self._a_host = None
 
     @property

@@ -1,7 +1,7 @@
 """Sparse operator containers and host converters.
 
-Counterpart of ``omp_amg_tpu/sparse/formats.py`` (``Dia``, ``Csr`` and the
-host ELL/scipy helpers the PMIS setup uses).
+Counterpart of ``omp_amg_tpu/sparse/formats.py`` (``Dia``, ``Csr``,
+``ConstDia`` and the host ELL/DIA/scipy helpers the setups use).
 
 - ``Dia``: banded storage with static offsets, ``data[k, i]`` multiplies
   ``x[i + offsets[k]]``, out-of-range slots are exactly 0. ``data`` is a
@@ -11,6 +11,10 @@ host ELL/scipy helpers the PMIS setup uses).
   bf16) for the general-sparsity levels (coarse A, P, R). On the GPU a gather
   is an ordinary load, so CSR replaces the reference's ELL and routed-ELL
   device forms.
+- ``ConstDia``: a matrix-free masked-constant 3D stencil (coefficients and
+  taps only). The reference's ``(nmask, plane/128, 128)`` validity masks
+  exist for the TPU's VMEM lanes; here a tap's validity is index arithmetic
+  on (z, y, x), so no mask array is kept.
 
 The host helpers stay numpy/scipy: padded ELL planes use ``col=0, val=0``
 padding, as in the reference.
@@ -65,6 +69,127 @@ class Csr:
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.n_rows, self.n_cols)
+
+
+@dataclass(frozen=True)
+class ConstDia:
+    """Matrix-free masked-constant stencil operator on a 3D grid:
+    ``A[i, i + offsets[k]] = coeffs[k]`` wherever tap ``taps[k] = (dz, dy,
+    dx)`` stays inside ``dims = (nz, ny, nx)``, else 0. A SpMV streams the
+    vectors only."""
+
+    coeffs: Tuple[float, ...]                # per-tap constant (f32 values)
+    offsets: Tuple[int, ...]                 # flat diagonal offsets
+    taps: Tuple[Tuple[int, int, int], ...]   # (dz, dy, dx) per offset
+    dims: Tuple[int, int, int]               # (nz, ny, nx)
+    device: torch.device = torch.device("cpu")
+
+    @property
+    def n_rows(self) -> int:
+        nz, ny, nx = self.dims
+        return nz * ny * nx
+
+    @property
+    def n_cols(self) -> int:
+        return self.n_rows
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_rows)
+
+    @functools.cached_property
+    def operand(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The kernel operand: (taps int32 (m, 3), coeffs f32 (m,)) of the
+        taps with a nonzero coefficient, in ascending offset order (host
+        arrays; the kernel receives them by value)."""
+        keep = [k for k, c in enumerate(self.coeffs) if c != 0.0]
+        taps = np.array([self.taps[k] for k in keep], np.int32).reshape(-1, 3)
+        coeffs = np.array([self.coeffs[k] for k in keep], np.float32)
+        return taps, coeffs
+
+
+def const_masks(taps, dims, device) -> list:
+    """Per-tap validity masks (bool, length n) by index arithmetic: tap
+    (dz, dy, dx) is valid at row (z, y, x) iff it stays inside the grid."""
+    nz, ny, nx = dims
+    idx = torch.arange(nz * ny * nx, dtype=torch.int64, device=device)
+    xi = idx % nx
+    yi = (idx // nx) % ny
+    zi = idx // (nx * ny)
+    return [(xi + dx >= 0) & (xi + dx < nx) & (yi + dy >= 0) & (yi + dy < ny)
+            & (zi + dz >= 0) & (zi + dz < nz) for dz, dy, dx in taps]
+
+
+def _tap_decompose(d: int, dims) -> Tuple[int, int, int] | None:
+    """Flat diagonal offset → (dz, dy, dx) grid tap (minimal L1 norm)."""
+    nz, ny, nx = dims
+    plane = ny * nx
+    best = None
+    for dz in (-1, 0, 1):
+        for dy in range(-8, 9):
+            dx = d - dz * plane - dy * nx
+            if abs(dx) <= 8:
+                cand = (abs(dz) + abs(dy) + abs(dx), dz, dy, dx)
+                if best is None or cand < best:
+                    best = cand
+    return None if best is None else best[1:]
+
+
+def to_const_dia(a: Dia, device="cpu") -> ConstDia | None:
+    """Host ``Dia`` (numpy data) → ``ConstDia`` on ``device`` when the
+    operator is a masked-constant 3D stencil, else None.
+
+    The reference's detection rule, unchanged, so that both packages choose
+    the same form at every level: 3D dims, ``ny·nx % 128 == 0`` (a rule born
+    of the TPU's 128 lanes, kept for parity), every offset a tap within
+    ±1 plane and ±8 rows/columns, an interior row to sample the coefficients
+    from, and an exact box check of every diagonal (the value on the tap's
+    valid box, 0 off it). Galerkin coarse operators fail the check: their
+    boundary values are modified, not merely zeroed.
+    """
+    if a.dims is None or len(a.dims) != 3:
+        return None
+    nz, ny, nx = (int(d) for d in a.dims)
+    dims = (nz, ny, nx)
+    if (ny * nx) % 128 != 0:
+        return None
+    taps = []
+    for d in a.offsets:
+        t = _tap_decompose(int(d), dims)
+        if t is None:
+            return None
+        taps.append(t)
+    zm, ym, xm = nz // 2, ny // 2, nx // 2
+    for dz, dy, dx in taps:
+        if not (0 <= zm + dz < nz and 0 <= ym + dy < ny and 0 <= xm + dx < nx):
+            return None  # grid too small to sample an interior coefficient
+    data = np.asarray(a.data)
+    mid = (zm * ny + ym) * nx + xm
+    coeffs = tuple(float(v) for v in data[:, mid])
+    for k, ((dz, dy, dx), c) in enumerate(zip(taps, coeffs)):
+        v = data[k].reshape(nz, ny, nx)
+        c = data.dtype.type(c)
+        box = v[max(0, -dz):nz - max(0, dz),
+                max(0, -dy):ny - max(0, dy),
+                max(0, -dx):nx - max(0, dx)]
+        if not np.all(box == c):
+            return None
+        if np.count_nonzero(v) != (box.size if c != 0 else 0):
+            return None
+    # the concrete device ("cuda" → "cuda:0"), as the vectors will carry it
+    device = torch.empty(0, device=device).device
+    return ConstDia(coeffs=coeffs, offsets=tuple(int(o) for o in a.offsets),
+                    taps=tuple(taps), dims=dims, device=device)
+
+
+def const_to_dia(a: ConstDia) -> Dia:
+    """Materialize the f32 DIA planes of a ``ConstDia`` on its device."""
+    zero = torch.zeros((), dtype=torch.float32, device=a.device)
+    data = torch.stack([
+        torch.where(m, torch.tensor(c, dtype=torch.float32, device=a.device),
+                    zero)
+        for c, m in zip(a.coeffs, const_masks(a.taps, a.dims, a.device))])
+    return Dia(data=data, offsets=a.offsets, dims=a.dims)
 
 
 def bf16_lossless(values: np.ndarray) -> bool:
@@ -206,6 +331,25 @@ def dia_to_scipy(a: Dia):
     m.eliminate_zeros()
     m.sort_indices()
     return m
+
+
+def dia_planes_from_scipy(a):
+    """(offsets, f64 numpy planes) of a square banded scipy matrix, through
+    scipy's ``dia_matrix``."""
+    import scipy.sparse as sp
+
+    d = sp.dia_matrix(a)
+    n = d.shape[0]
+    if d.shape[0] != d.shape[1]:
+        raise ValueError("Dia requires a square matrix")
+    offsets = [int(o) for o in d.offsets]
+    # scipy's data[k, j] multiplies x[j] for row j − off; ours data[k, i]
+    # multiplies x[i + off] for row i → ours[k, i] = scipy[k, i + off]
+    out = np.zeros((len(offsets), n), dtype=np.float64)
+    for k, off in enumerate(offsets):
+        i0, i1 = max(0, -off), min(n, n - off)
+        out[k, i0:i1] = d.data[k, i0 + off:i1 + off]
+    return offsets, out
 
 
 def ell_planes_from_dia(a: Dia, dtype=np.float32):

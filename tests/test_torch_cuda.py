@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel × mode × value type
-against its plain twin on the same CUDA tensors, and the GPU solve's
-iteration counts against the port's CPU solve. Needs an NVIDIA GPU and nvcc;
-skipped elsewhere (the CPU runs only the twins). Run on the card with
+against its plain twin on the same CUDA tensors, and the GPU solves'
+iteration counts (PMIS and structured) against the port's CPU solves. Needs
+an NVIDIA GPU and nvcc; skipped elsewhere (the CPU runs only the twins). Run
+on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -11,19 +12,31 @@ import pytest
 import torch
 
 import omp_amg_tpu_torch as amg
-from omp_amg_tpu_torch.ops import csr_spmv, dia_spmv
-from omp_amg_tpu_torch.sparse.formats import Csr, Dia
+from omp_amg_tpu_torch.ops import const_stencil, csr_spmv, dia_spmv
+from omp_amg_tpu_torch.sparse.formats import ConstDia, Csr, Dia, to_const_dia
 
 pytestmark = pytest.mark.cuda
 
 PARAMS = amg.AMGParams(coarsening="pmis")
 
 
-@pytest.fixture(scope="module")
-def hier():
+def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the CPU runs the plain twins)")
+
+
+@pytest.fixture(scope="module")
+def hier():
+    _need_cuda()
     return amg.amg_setup(amg.poisson3d_7pt(24), PARAMS, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def stencil():
+    _need_cuda()
+    a = amg.poisson3d_27pt(64, 32, 16)
+    return to_const_dia(Dia(data=a.data.astype(np.float32),
+                            offsets=a.offsets, dims=a.dims), device="cuda")
 
 
 def _vec(rng, n):
@@ -74,13 +87,56 @@ def test_csr_kernel_matches_twin(hier, mode, dtype):
             _check(got, want, 1e-5)
 
 
-def test_gpu_solve_matches_cpu_iterations(hier):
-    a = amg.poisson3d_7pt(24)
+@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi", "zjr",
+                                  "cja"])
+def test_const_stencil_kernel_matches_twin(stencil, mode):
+    rng = np.random.default_rng(2)
+    x, b, p = (_vec(rng, stencil.n_rows) for _ in range(3))
+    s = float(np.float32(0.137))
+    before = const_stencil.launches
+    got = {"spmv": lambda: const_stencil.spmv(stencil, x),
+           "residual": lambda: const_stencil.residual(stencil, x, b),
+           "jacobi": lambda: const_stencil.jacobi(stencil, x, b, s),
+           "zjr": lambda: const_stencil.presmooth_residual(stencil, x, s),
+           "cja": lambda: const_stencil.correct_jacobi(stencil, x, p, s)
+           }[mode]()
+    assert const_stencil.launches == before + 1
+    want = const_stencil.const_stencil_plain(stencil, x, mode, b=b, p=p, s=s)
+    # explicit rounding in ascending tap order: bitwise the twin
+    _check(got, want, 0.0)
+
+
+@pytest.mark.parametrize("dims", [(70000, 2, 40), (1, 530000, 33)])
+def test_const_stencil_kernel_chunks_large_grids(dims):
+    """More than 65535 planes, or more than 65535 tiles of 4 lines: the
+    launcher splits the grid into chunks the launch grid can carry."""
+    _need_cuda()
+    nz, ny, nx = dims
+    taps = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
+            (0, 1, 0), (1, 0, 0))
+    offsets = tuple((dz * ny + dy) * nx + dx for dz, dy, dx in taps)
+    a = ConstDia(coeffs=(-1.0, -1.0, -1.0, 6.0, -1.0, -1.0, -1.0),
+                 offsets=offsets, taps=taps, dims=dims,
+                 device=torch.empty(0, device="cuda").device)
+    rng = np.random.default_rng(3)
+    x, b = _vec(rng, a.n_rows), _vec(rng, a.n_rows)
+    _check(const_stencil.residual(a, x, b),
+           const_stencil.const_stencil_plain(a, x, "residual", b=b), 0.0)
+
+
+@pytest.mark.parametrize("n,params,grid", [
+    (24, PARAMS, None),
+    (32, amg.AMGParams(), (32, 32, 32)),
+])
+def test_gpu_solve_matches_cpu_iterations(n, params, grid):
+    _need_cuda()
+    a = amg.poisson3d_7pt(n)
     b = amg.default_rhs(a, seed=0)
     infos = []
     for device in ("cuda", "cpu"):
-        solver = amg.AMGSolver(a, PARAMS, device=device)
+        solver = amg.AMGSolver(a, params, device=device, grid=grid)
         solver.solve(b, tol=1e-8)
         infos.append(solver.last_info)
     assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
     assert infos[0]["rel_residual"] <= 1e-8

@@ -1,7 +1,8 @@
-"""The port stands alone: importing ``omp_amg_tpu_torch`` and running a small
-CPU solve loads neither JAX nor the reference package ``omp_amg_tpu``
-(the machine with the GPU has no JAX). Runs in a fresh interpreter, since
-this test process has both loaded."""
+"""The port stands alone: importing ``omp_amg_tpu_torch`` and running small
+CPU solves on both paths (classical PMIS, and structured with ``grid=``)
+loads neither JAX nor the reference package ``omp_amg_tpu`` (the machine
+with the GPU has no JAX). Runs in a fresh interpreter, since this test
+process has both loaded."""
 
 import json
 import subprocess
@@ -16,13 +17,17 @@ import torch
 torch.set_num_threads(2)
 import omp_amg_tpu_torch as amg
 a = amg.poisson3d_7pt(8)
-solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis"), device="cpu")
-solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
+infos = []
+for kw in (dict(params=amg.AMGParams(coarsening="pmis")),
+           dict(params=amg.AMGParams(), grid=(8, 8, 8))):
+    solver = amg.AMGSolver(a, kw.pop("params"), device="cpu", **kw)
+    solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
+    infos.append({k: solver.last_info[k]
+                  for k in ("iters", "outer_iters", "rel_residual")})
+    infos[-1]["structured"] = type(solver.hierarchy.levels[0].p).__name__
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "omp_amg_tpu"))
-print(json.dumps({"loaded": loaded, "info": {
-    k: solver.last_info[k] for k in ("iters", "outer_iters",
-                                      "rel_residual")}}))
+print(json.dumps({"loaded": loaded, "infos": infos}))
 """
 
 
@@ -32,5 +37,7 @@ def test_port_imports_no_jax_and_solves():
     assert out.returncode == 0, out.stderr[-4000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert res["info"]["rel_residual"] <= 1e-8
-    assert res["info"]["iters"] > 0
+    assert [i["structured"] for i in res["infos"]] == ["Csr", "GridProlong"]
+    for info in res["infos"]:
+        assert info["rel_residual"] <= 1e-8
+        assert info["iters"] > 0

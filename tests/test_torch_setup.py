@@ -76,7 +76,7 @@ def test_coarse_operators_match(setups):
 def test_dinv_and_lmax_match(setups):
     _, hier_j, _, _, hier_t, _ = setups
     for lt, lj in zip(hier_t.levels, hier_j.levels):
-        np.testing.assert_allclose(lt.dinv.numpy(), np.asarray(lj.dinv),
+        np.testing.assert_allclose(lt.dinv, np.asarray(lj.dinv),
                                    rtol=RTOL, atol=0)
         np.testing.assert_allclose(lt.lmax, float(np.asarray(lj.lmax)),
                                    rtol=RTOL, atol=0)
@@ -101,7 +101,7 @@ def test_device_forms(setups):
             np.testing.assert_array_equal(
                 lv.a.vals.numpy(), host.ops[l].data.astype(np.float32))
         np.testing.assert_array_equal(
-            lv.s.numpy(), jacobi_scale(lv.dinv.numpy(), lv.lmax,
+            lv.s.numpy(), jacobi_scale(lv.dinv, lv.lmax,
                                        hier_t.params))
     np.testing.assert_allclose(hier_t.coarse_chol.numpy(),
                                np.asarray(hier_j.coarse_chol), rtol=1e-6,
@@ -111,7 +111,9 @@ def test_device_forms(setups):
 def test_unported_parameters_raise():
     a = port.poisson3d_7pt(8)
     for kw in (dict(smoother="chebyshev"), dict(cycle="w"),
-               dict(coarsening="structured"), dict(rap="probe"),
-               dict(coarse_solver="inv")):
+               dict(rap="probe"), dict(coarse_solver="inv")):
         with pytest.raises(NotImplementedError):
             port.amg_setup(a, port.AMGParams(**kw))
+    # structured coarsening is ported; without a grid it is refused
+    with pytest.raises(ValueError):
+        port.amg_setup(a, port.AMGParams(coarsening="structured"))

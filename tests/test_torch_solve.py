@@ -102,11 +102,13 @@ def test_uncertified_solve_and_precondition():
 def test_solver_raises_on_unported_options(monkeypatch):
     a = port.poisson3d_7pt(8)
     p = port.AMGParams(coarsening="pmis")
-    for kw in (dict(mesh=object()), dict(grid=(8, 8, 8)),
-               dict(flavor="device"), dict(refreshable=True)):
+    for kw in (dict(mesh=object()), dict(flavor="device"),
+               dict(refreshable=True)):
         with pytest.raises(NotImplementedError):
-            port.AMGSolver(a, p if "grid" not in kw else port.AMGParams(),
-                           **kw)
+            port.AMGSolver(a, p, **kw)
+    # structured hierarchies do not refresh: refused at construction
+    with pytest.raises(ValueError):
+        port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), refreshable=True)
     with pytest.raises(NotImplementedError):
         port.AMGSolver(a, port.AMGParams(smoother="l1jacobi"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
