@@ -18,6 +18,18 @@ Phases (each raises on failure, so the exit code is non-zero):
    device="cuda").solve(b, tol=1e-8)``;
 5. iteration parity of the PMIS GPU solve against the port's plain CPU
    solve at 64³;
+5a. probe-kernel checks: the ``poisson3d_7pt(n)`` PMIS setup with
+   ``rap="probe"``; per level the host Galerkin product, the colouring and
+   the device numeric phase, its A_c against the host product; on levels 0
+   and 1 ``panel_spmm`` (A·PV and R·U of the first colour group) and
+   ``extract_lanes`` against their twins;
+5b. the probe main path: ``AMGSolver(A, AMGParams(coarsening="pmis",
+   rap="probe"), device="cuda").solve(b, tol=1e-8)``, its hierarchy the one
+   checked in 5a, its setup and counts beside phase 4's;
+5c. ``bench.py``'s numeric-phase measurement on the card: level 0 of PMIS
+   ``poisson3d_7pt(96)``, warm, against the host Galerkin product;
+5d. iteration parity of the probe GPU solve against the port's CPU solve
+   at 64³;
 6. ``const_stencil`` kernel checks: all five modes on the ``ConstDia`` of
    ``poisson3d_7pt(256)``, ``poisson3d_7pt(n)`` and ``poisson3d_27pt(n)``;
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
@@ -30,9 +42,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    CPU solves on ``bench.py``'s structured configs.
 
 Each main path is driven with every launch counter set to 0 just before it
-and read just after; certified and scipy f64 residuals are checked. The line
-before the last is a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+and read just after; certified and scipy f64 residuals are checked. Every
+kernel check also times one PyTorch call that computes the same function,
+where there is one (``library_ms``: ``torch.sparse.mm``, ``F.conv3d``,
+``torch.gather``; a yardstick the port never calls), and the least time the
+card could take (``bound``: the bytes the function must move over the
+card's published memory rate, or its operations over its published f32
+rate, whichever is larger). The line before the last is a JSON object with
+one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,8 +65,19 @@ import numpy as np
 DIA_BOUND = 1e-6    # ≤ 27 f32 terms summed: only the order may differ
 CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
 CONST_BOUND = 1e-6  # same products and order as the twin: expected 0
+PROBE_BOUND = 1e-6  # panel_spmm and extract_lanes: bitwise the twin,
+                    # expected 0
+RAP_BOUND = 3e-6    # probed A_c against the host product (f32 sums)
 SEED = 0            # right-hand side and kernel-check inputs
 PARITY_N = 64       # the PMIS GPU/CPU iteration-parity grid
+RAP_BENCH_N = 96    # bench.py's BENCH_PMIS_N: its numeric-phase measurement
+# published peaks (NVIDIA data sheets): memory bytes/s and f32 FLOP/s
+# outside the tensor cores, by card name; the first match wins
+PEAKS = (("H200", 4.8e12, 67e12, "H200 SXM"),
+         ("H100 NVL", 3.9e12, 60e12, "H100 NVL"),
+         ("H100 PCIe", 2.0e12, 51e12, "H100 PCIe"),
+         ("H100", 3.35e12, 67e12, "H100 SXM"))
+PEAK = PEAKS[-1]    # set from the card's name in main()
 TPU_RECORD_64 = {"inner": 11, "outer": 2}   # bench_details.json
                                             # pmis_configs.3d7pt_64
 CONST_N = 256       # bench.py's BENCH_N: the reference's SpMV headline size
@@ -95,9 +123,20 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def compare(name, kernel, plain, bound, nbytes, flush):
-    """Run kernel and twin once, check the bound, time both with a cold L2;
-    a result row."""
+def card_peak(name: str):
+    """(bytes/s, f32 FLOP/s, label) published for the card ``name``."""
+    for key, bw, flops, label in PEAKS:
+        if key in name:
+            return bw, flops, label
+    return PEAKS[-1][1], PEAKS[-1][2], f"unknown card: {PEAKS[-1][3]}"
+
+
+def compare(name, kernel, plain, bound, nbytes, flush, library=None,
+            flops=0):
+    """Run kernel and twin once, check the bound, time both with a cold L2,
+    and the ``library`` call (one PyTorch call computing the same function)
+    where there is one; a result row. ``nbytes`` counts each input read
+    once and each output written once, ``flops`` the f32 operations."""
     import torch
 
     y = kernel()
@@ -108,8 +147,22 @@ def compare(name, kernel, plain, bound, nbytes, flush):
     ok = bool(torch.isfinite(y).all()) and err <= bound * max(scale, 1e-30)
     ms = cuda_ms(kernel, flush=flush)
     plain_ms = cuda_ms(plain, flush=flush)
+    library_ms = library_err = None
+    if library is not None:
+        lib_y = library().reshape(ref.shape).float()
+        torch.cuda.synchronize()
+        library_err = (float((lib_y - ref).abs().max()) if ref.numel()
+                       else 0.0)
+        del lib_y
+        library_ms = cuda_ms(library, flush=flush)
+    bw, peak_flops, _ = PEAK
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / peak_flops * 1e3
     row = dict(name=name, max_abs_err=err, max_abs_ref=scale,
                rel_err=err / max(scale, 1e-30), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_err=library_err,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bound_us=max(bytes_ms, ops_ms) * 1e3, bytes=nbytes,
                gb_per_s=nbytes / ms / 1e6)
     print("check " + " ".join(
         f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
@@ -126,16 +179,41 @@ def _vec(rng, n, dev):
     return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
 
 
+def library_csr(indptr, indices, vals, shape):
+    """A ``torch.sparse_csr_tensor`` (int64 indices, f32 values) for the
+    ``torch.sparse.mm`` yardstick; built apart, never handed to the
+    port."""
+    import torch
+
+    return torch.sparse_csr_tensor(indptr.long(), indices.long(),
+                                   vals.float(), size=shape)
+
+
+def library_spmv(csr, x):
+    """One ``torch.sparse.mm`` call: y = A·x as an (n, 1) product."""
+    import torch
+
+    xm = x[:, None]
+    return lambda: torch.sparse.mm(csr, xm)
+
+
 def dia_checks(tag, a, s, rng, flush, dtypes):
     """All three ``dia_spmv`` modes × ``dtypes`` on the banded operator
     ``a`` (s: its Jacobi scale)."""
     import torch
 
     from omp_amg_tpu_torch.ops import dia_spmv
-    from omp_amg_tpu_torch.sparse.formats import Dia
+    from omp_amg_tpu_torch.sparse.formats import Dia, dia_to_scipy
 
     n = a.n_rows
     x, b = _vec(rng, n, a.data.device), _vec(rng, n, a.data.device)
+    # the same banded operator as f32 CSR, for the torch.sparse.mm yardstick
+    host = dia_to_scipy(Dia(data=a.data.float().cpu().numpy(),
+                            offsets=a.offsets))
+    lib = library_spmv(library_csr(*(torch.from_numpy(t).cuda() for t in (
+        host.indptr, host.indices, host.data)), host.shape), x)
+    flops = 2 * host.nnz
+    del host
     rows = []
     for dt in dtypes:
         ad = Dia(data=a.data.to(dt).contiguous(), offsets=a.offsets,
@@ -155,7 +233,8 @@ def dia_checks(tag, a, s, rng, flush, dtypes):
         for mode, (kern, plain, nbytes) in cases.items():
             rows.append(compare(
                 f"dia_spmv:{tag}:{vt}:{mode}:n={n}:ndiag={len(a.offsets)}",
-                kern, plain, DIA_BOUND, nbytes, flush))
+                kern, plain, DIA_BOUND, nbytes, flush,
+                library=lib if mode == "spmv" else None, flops=flops))
     return rows
 
 
@@ -181,6 +260,8 @@ def pmis_kernel_checks(hier, rng, flush):
             m, k = op.shape
             x, b, v = _vec(rng, k, dev), _vec(rng, m, dev), _vec(rng, m, dev)
             s = lv.s if opname == "A" else None
+            lib = library_spmv(library_csr(op.indptr, op.indices, op.vals,
+                                           op.shape), x)
             for dt in (torch.float32, torch.bfloat16):
                 a = Csr(indptr=op.indptr, indices=op.indices,
                         vals=op.vals.to(dt).contiguous(), n_cols=op.n_cols)
@@ -206,13 +287,17 @@ def pmis_kernel_checks(hier, rng, flush):
                     rows["csr_spmv"].append(compare(
                         f"csr_spmv:L{l}-{opname}:{tag}:{mode}:"
                         f"rows={m}:nnz={a.nnz}", kern, plain, CSR_BOUND,
-                        nbytes, flush))
+                        nbytes, flush,
+                        library=lib if mode == "spmv" else None,
+                        flops=2 * a.nnz))
     return rows
 
 
 def const_checks(tag, a, rng, flush):
     """All five ``const_stencil`` modes on the host operator ``a`` (a
     masked-constant 3D stencil), on the card, against the twin."""
+    import torch
+
     from omp_amg_tpu_torch.ops import const_stencil as cs
     from omp_amg_tpu_torch.sparse.formats import Dia, to_const_dia
 
@@ -224,6 +309,17 @@ def const_checks(tag, a, rng, flush):
     x, b, p = (_vec(rng, n, cd.device) for _ in range(3))
     s = float(np.float32(0.137))
     plain = cs.const_stencil_plain
+    # F.conv3d with zero padding (cross-correlation: weight[dz+1, dy+1,
+    # dx+1] multiplies x[z+dz, y+dy, x+dx]); TF32 is off (main())
+    weight = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32,
+                         device=cd.device)
+    for (dz, dy, dx), c in zip(cd.taps, cd.coeffs):
+        weight[0, 0, dz + 1, dy + 1, dx + 1] = c
+    x5 = x.view(1, 1, *cd.dims)
+
+    def conv():
+        return torch.nn.functional.conv3d(x5, weight, padding=1)
+    flops = 2 * len(cd.operand[1]) * n
     cases = {
         "spmv": (lambda: cs.spmv(cd, x), lambda: plain(cd, x), 8 * n),
         "residual": (lambda: cs.residual(cd, x, b),
@@ -236,7 +332,8 @@ def const_checks(tag, a, rng, flush):
                 lambda: plain(cd, b, "cja", p=p, s=s), 12 * n),
     }
     return [compare(f"const_stencil:{tag}:{mode}:n={n}:taps={len(cd.taps)}",
-                    kern, pl, CONST_BOUND, nbytes, flush)
+                    kern, pl, CONST_BOUND, nbytes, flush,
+                    library=conv if mode == "spmv" else None, flops=flops)
             for mode, (kern, pl, nbytes) in cases.items()]
 
 
@@ -244,7 +341,7 @@ def drive(label, a, params, grid, counters):
     """Drive one main path through the user's entry points: counters set to
     0 just before, read just after; certified and scipy f64 residuals
     checked; then a warm solve and the V-cycle time. Returns (solver,
-    launches)."""
+    launches, run): run holds setup_s and the solve's ``last_info``."""
     import torch
 
     import omp_amg_tpu_torch as amg
@@ -288,7 +385,7 @@ def drive(label, a, params, grid, counters):
     vcycle_ms = cuda_ms(lambda: amg.vcycle(solver.hierarchy, r))
     print(f"{label} warm_solve_s={warm_solve_s:.3f} "
           f"vcycle_ms={vcycle_ms:.4f}", flush=True)
-    return solver, launches
+    return solver, launches, dict(setup_s=setup_s, info=info)
 
 
 def expect_launches(label, launches, used):
@@ -330,6 +427,143 @@ def parity(label, a, params, grid, record=None):
                              "accepted)")
 
 
+def spmm_bytes(a, c) -> int:
+    """Bytes ``spmm_panel`` must move: A's nonzeros and indptr, X and U
+    once each."""
+    return a.nnz * 8 + (a.n_rows + 1) * 8 + a.n_cols * c * 4 + a.n_rows * c * 4
+
+
+def probe_kernel_checks(l, probe, flush):
+    """``panel_spmm`` on A·PV and R·U of the first colour group and
+    ``extract_lanes`` on the whole W of level ``l``'s probe, each against
+    its twin on the same CUDA tensors, with its library yardstick."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import extract_lanes as ex
+    from omp_amg_tpu_torch.ops import panel_spmm as ps
+    from omp_amg_tpu_torch.ops import probe_rap as pr
+
+    rows = {"panel_spmm": [], "extract_lanes": []}
+    c0, width = probe.groups[0]
+    x = pr.panel_pv(probe, c0, width)
+    for opname, op in (("A·PV", probe.a), ("R·U", probe.r)):
+        csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
+        rows["panel_spmm"].append(compare(
+            f"panel_spmm:L{l}-{opname}:rows={op.n_rows}:nnz={op.nnz}:"
+            f"C={width}", lambda: ps.spmm_panel(op, x),
+            lambda: ps.spmm_panel_plain(op, x), PROBE_BOUND,
+            spmm_bytes(op, width), flush,
+            library=lambda: torch.sparse.mm(csr, x),
+            flops=2 * op.nnz * width))
+        x = ps.spmm_panel(op, x)
+        del csr
+    parts = [x]
+    for c0, width in probe.groups[1:]:
+        parts.append(ps.spmm_panel(probe.r, ps.spmm_panel(
+            probe.a, pr.panel_pv(probe, c0, width))))
+    w = torch.cat(parts, dim=1)
+    idx = probe.ac_cidx
+    idx64 = idx.long()
+    real = int(probe.ac_mask.sum())
+    rows["extract_lanes"].append(compare(
+        f"extract_lanes:L{l}:rows={idx.shape[0]}:slots={idx.shape[1]}:"
+        f"W={w.shape[1]}", lambda: ex.extract_lanes(w, idx),
+        lambda: ex.extract_lanes_plain(w, idx), PROBE_BOUND,
+        idx.numel() * 8 + real * 4, flush,
+        library=lambda: torch.gather(w, 1, idx64)))
+    return rows
+
+
+def probe_setup_checks(a, params, flush):
+    """Phase 5a: the PMIS setup with ``rap="probe"`` and ``keep_host``; per
+    level the host Galerkin product, the colouring (host seconds) and the
+    device numeric phase (CUDA events), its A_c within RAP_BOUND of the
+    host product and equal to the setup's own values; kernel checks on
+    levels 0 and 1. Returns (host record, kernel rows)."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import probe_rap as pr
+    from omp_amg_tpu_torch.ops.rap import galerkin_product
+    from omp_amg_tpu_torch.sparse.formats import ell_planes_from_scipy
+
+    t0 = time.perf_counter()
+    _, host = amg.amg_setup(a, params, device="cuda", keep_host=True)
+    torch.cuda.synchronize()
+    print(f"probe setup (keep_host) n={a.n_rows} "
+          f"setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    rows = {"panel_spmm": [], "extract_lanes": []}
+    for l, p_sp in enumerate(host.p):
+        a_sp = host.ops[l]
+        t0 = time.perf_counter()
+        ac = galerkin_product(a_sp, p_sp)
+        host_rap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coloring = pr.d2_color(ac)
+        color_s = time.perf_counter() - t0
+        line = (f"probe L{l} rows={a_sp.shape[0]} nnz_A={a_sp.nnz} "
+                f"nnz_Ac={ac.nnz} host_galerkin_s={host_rap_s:.4f} "
+                f"d2_color_s={color_s:.4f}")
+        if coloring is None:
+            print(f"{line} colours>256: host values", flush=True)
+            continue
+        probe, _ = pr.build_rap_probe(a_sp, p_sp, ac, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vals = pr.rap_probe_numeric(probe)
+        end.record()
+        torch.cuda.synchronize()
+        numeric_ms = start.elapsed_time(end)
+        want = ell_planes_from_scipy(ac, dtype=np.float64)[1]
+        got = vals.double().cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        print(f"{line} colours={probe.n_colors} groups={len(probe.groups)} "
+              f"widths={[w for _, w in probe.groups]} "
+              f"numeric_ms={numeric_ms:.3f} max_abs_err={err:.3e} "
+              f"rel_err={err / scale:.3e}", flush=True)
+        if err > RAP_BOUND * scale:
+            raise AssertionError(f"probe L{l}: A_c off the host product by "
+                                 f"{err:.3e} > {RAP_BOUND:g}·{scale:.3e}")
+        setup_vals = got[probe.ac_mask.cpu().numpy() != 0]
+        if not np.array_equal(setup_vals, host.ops[l + 1].data):
+            raise AssertionError(f"probe L{l}: the setup's A_c values are "
+                                 "not this numeric phase's")
+        if l < 2:
+            for name, more in probe_kernel_checks(l, probe, flush).items():
+                rows[name] += more
+        del probe, vals
+    return host, rows
+
+
+def rap_bench(n):
+    """Phase 5c: ``bench.py``'s numeric-phase measurement on the card (its
+    lines 515-542): level 0 of the PMIS ``poisson3d_7pt(n)`` hierarchy,
+    warm, CUDA events, 5 calls; and the host Galerkin product of the same
+    level on this machine."""
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import probe_rap as pr
+    from omp_amg_tpu_torch.ops.rap import galerkin_product
+
+    a = amg.poisson3d_7pt(n)
+    _, host = amg.amg_setup(a, amg.AMGParams(coarsening="pmis"),
+                            device="cuda", keep_host=True)
+    a0, p0 = host.ops[0], host.p[0]
+    t0 = time.perf_counter()
+    galerkin_product(a0, p0)
+    host_s = time.perf_counter() - t0
+    probe, _ = pr.build_rap_probe(a0, p0, device="cuda")
+    if probe is None:
+        raise AssertionError(f"{n}^3 L0: colouring above the cap")
+    ms = cuda_ms(lambda: pr.rap_probe_numeric(probe), reps=5, warm=1)
+    print(f"rap_bench n={n}^3 L0 nnz_A={a0.nnz} colours={probe.n_colors} "
+          f"rap_probe_ms={ms:.4f} "
+          f"rap_probe_gnnz_per_s={a0.nnz / ms / 1e6:.4f} "
+          f"host_galerkin_s={host_s:.4f} "
+          f"host_gnnz_per_s={a0.nnz / host_s / 1e9:.4f}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=128,
@@ -342,19 +576,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
-    print(card_info(), flush=True)
+    card = card_info()
+    print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    global PEAK
+    PEAK = card_peak(torch.cuda.get_device_name(0))
+    print(f"bounds: published {PEAK[2]} peaks, {PEAK[0] / 1e12:g} TB/s and "
+          f"{PEAK[1] / 1e12:g} f32 TFLOP/s (at the full power limit; this "
+          f"card: {card})", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch import _build, native
-    from omp_amg_tpu_torch.ops import const_stencil, csr_spmv, dia_spmv
+    from omp_amg_tpu_torch.ops import (
+        const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
+    )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
-                "csr_spmv": csr_spmv}
+                "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
+                "extract_lanes": extract_lanes}
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -370,6 +613,7 @@ def main() -> int:
                            f"{native.build_error()}")
 
     pmis = amg.AMGParams(coarsening="pmis")
+    probe = amg.AMGParams(coarsening="pmis", rap="probe")
     rng = np.random.default_rng(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
@@ -380,14 +624,48 @@ def main() -> int:
     del hier
 
     # phase 4: the PMIS main path
-    solver, pmis_launches = drive(f"pmis n={args.n}^3", a, pmis, None,
-                                  counters)
+    solver, pmis_launches, host_run = drive(f"pmis n={args.n}^3", a, pmis,
+                                            None, counters)
     expect_launches("pmis", pmis_launches, ("dia_spmv", "csr_spmv"))
     del solver
 
     # phase 5: PMIS GPU/CPU iteration parity
     parity(f"pmis n={PARITY_N}^3", amg.poisson3d_7pt(PARITY_N), pmis, None,
            (TPU_RECORD_64["inner"], TPU_RECORD_64["outer"]))
+
+    # phase 5a: probe-kernel checks on the rap="probe" hierarchy's operands
+    host, probe_rows = probe_setup_checks(a, probe, flush)
+    rows.update(probe_rows)
+
+    # phase 5b: the probe main path; its hierarchy is the one checked in 5a
+    solver, probe_launches, probe_run = drive(f"pmis probe n={args.n}^3", a,
+                                              probe, None, counters)
+    expect_launches("pmis probe", probe_launches,
+                    ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes"))
+    for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
+        want = torch.from_numpy(host.ops[l].data.astype(np.float32))
+        if not torch.equal(lv.a.vals.cpu(), want.to(lv.a.vals.dtype)):
+            raise AssertionError(f"pmis probe: level {l}'s A differs from "
+                                 "the checked setup's")
+    hi, pi = host_run["info"], probe_run["info"]
+    print(f"pmis probe vs host n={args.n}^3: setup_s "
+          f"{probe_run['setup_s']:.3f} vs {host_run['setup_s']:.3f}; inner "
+          f"{pi['inner_iters']} vs {hi['inner_iters']}; outer "
+          f"{pi['outer_iters']} vs {hi['outer_iters']}", flush=True)
+    if (pi["inner_iters"], pi["outer_iters"]) != (hi["inner_iters"],
+                                                  hi["outer_iters"]):
+        for tag, info in (("probe", pi), ("host", hi)):
+            for k, hist in enumerate(info["residual_histories"]):
+                print(f"history pmis {tag} outer={k}: "
+                      + " ".join(f"{h:.6e}" for h in hist), flush=True)
+    del solver, host
+
+    # phase 5c: bench.py's numeric-phase measurement, on the card
+    rap_bench(RAP_BENCH_N)
+
+    # phase 5d: probe GPU/CPU iteration parity
+    parity(f"pmis probe n={PARITY_N}^3", amg.poisson3d_7pt(PARITY_N), probe,
+           None)
 
     # phase 6: const_stencil kernel checks
     rows["const_stencil"] = []
@@ -404,8 +682,8 @@ def main() -> int:
         rows["dia_spmv"] += dia_checks(tag, lv.a, lv.s, rng, flush, dts)
 
     # phase 7: the 3D structured main path, then dia_spmv on its levels
-    solver, s3_launches = drive(f"structured n={args.n}^3", a,
-                                amg.AMGParams(), (args.n,) * 3, counters)
+    solver, s3_launches, _ = drive(f"structured n={args.n}^3", a,
+                                   amg.AMGParams(), (args.n,) * 3, counters)
     expect_launches("structured 3D", s3_launches,
                     ("const_stencil", "dia_spmv"))
     for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
@@ -415,8 +693,8 @@ def main() -> int:
     # phase 8: the 2D structured path, then dia_spmv on its 1024² and 512²
     # operators
     a2 = amg.poisson2d_5pt(N2D)
-    solver, s2_launches = drive(f"structured 2D n={N2D}^2", a2,
-                                amg.AMGParams(), (N2D, N2D), counters)
+    solver, s2_launches, _ = drive(f"structured 2D n={N2D}^2", a2,
+                                   amg.AMGParams(), (N2D, N2D), counters)
     expect_launches("structured 2D", s2_launches, ("dia_spmv",))
     for l, lv in enumerate(solver.hierarchy.levels[:2]):
         banded_checks(f"S2-L{l}-A", lv)
@@ -434,10 +712,12 @@ def main() -> int:
            for m in sys.modules):
         raise AssertionError("the JAX package was imported")
 
-    launches = {name: pmis_launches[name] + s3_launches[name]
-                + s2_launches[name] for name in counters}
-    print(f"main-path launches: pmis={pmis_launches} "
-          f"structured_3d={s3_launches} structured_2d={s2_launches}",
+    paths = {"pmis": pmis_launches, "pmis_probe": probe_launches,
+             "structured_3d": s3_launches, "structured_2d": s2_launches}
+    launches = {name: sum(p[name] for p in paths.values())
+                for name in counters}
+    print("main-path launches: " + " ".join(f"{k}={v}"
+                                            for k, v in paths.items()),
           flush=True)
 
     def summary(name, source, replaces, main):
@@ -445,12 +725,18 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}
+                "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+                "bound_ms": main_row["bound_ms"],
+                "bound_by": main_row["bound_by"],
+                "bound_us": main_row["bound_us"],
+                "library_ms": main_row["library_ms"]}
 
-    print(f"kernels line: launches sum the three main paths; ms/plain_ms "
-          f"time const_stencil:7pt{CONST_N}:spmv, dia_spmv:L0-A:bf16:spmv "
-          f"and csr_spmv:L1-A:f32:spmv with a cold L2; max_abs_err is the "
-          f"largest over all checks", flush=True)
+    print(f"kernels line: launches sum the four main paths; ms, plain_ms, "
+          f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
+          f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
+          f"panel_spmm:L0-A·PV and extract_lanes:L0 with a cold L2; "
+          f"max_abs_err is the largest over all checks; bounds against "
+          f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
         summary("const_stencil", "omp_amg_tpu_torch/csrc/const_stencil.cu",
                 "omp_amg_tpu/ops/pallas_const.py:39",
@@ -462,6 +748,14 @@ def main() -> int:
         summary("csr_spmv", "omp_amg_tpu_torch/csrc/csr_spmv.cu",
                 "omp_amg_tpu/ops/pallas_routed.py:101",
                 "csr_spmv:L1-A:f32:spmv"),
+        summary("panel_spmm", "omp_amg_tpu_torch/csrc/panel_spmm.cu",
+                "omp_amg_tpu/ops/pallas_spmm.py:102, "
+                "omp_amg_tpu/ops/pallas_spmm.py:262, "
+                "omp_amg_tpu/ops/pallas_spmm.py:508",
+                "panel_spmm:L0-A·PV"),
+        summary("extract_lanes", "omp_amg_tpu_torch/csrc/extract_lanes.cu",
+                "omp_amg_tpu/ops/pallas_spmm.py:624",
+                "extract_lanes:L0"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,22 @@
 
 AMG-PCG on one GPU, on two paths, each with the reference's host setup
 (numpy plus ``csrc/native.cc``) and a device solve whose sparse work runs
-through three hand-written CUDA kernels for Hopper:
+through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
 
-- classical (PMIS) coarsening: ``csrc/dia_spmv.cu`` for the banded fine
-  level, ``csrc/csr_spmv.cu`` for every coarse A, P and R;
-- structured semicoarsening (``grid=``): ``csrc/const_stencil.cu`` for a
-  matrix-free constant-stencil fine level, ``csrc/dia_spmv.cu`` for the
-  banded Galerkin levels, and the grid transfers as torch slices.
+- classical (PMIS) coarsening: ``dia_spmv.cu`` for the banded fine level,
+  ``csr_spmv.cu`` for every coarse A, P and R. With
+  ``AMGParams(rap="probe")`` each coarse operator's values come from the
+  device Galerkin numeric phase (colored probing, ``ops/probe_rap.py``):
+  ``panel_spmm.cu`` computes the sparse × dense-panel products and
+  ``extract_lanes.cu`` gathers A_c out of them;
+- structured semicoarsening (``grid=``): ``const_stencil.cu`` for a
+  matrix-free constant-stencil fine level, ``dia_spmv.cu`` for the banded
+  Galerkin levels, and the grid transfers as torch slices.
 
-On CPU tensors the kernels' plain PyTorch twins run instead.
+The entry points (``AMGSolver``, ``amg_setup``, ``hierarchy_from_numpy``)
+run on the card by default (``device="cuda"``) and raise without CUDA; a CPU
+run passes ``device="cpu"``, and on CPU tensors the kernels' plain PyTorch
+twins run instead.
 
 Imports torch, numpy and scipy; never JAX or ``omp_amg_tpu``.
 """

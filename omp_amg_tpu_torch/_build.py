@@ -128,5 +128,11 @@ def cuda_kernels() -> ctypes.CDLL:
         lib.const_stencil_launch.argtypes = ([i32, i64, i64, i64, i32, p, p,
                                               ctypes.c_float] + [p] * 5)
         lib.const_stencil_launch.restype = i32
+        # n_rows, C, indptr, indices, vals, x, u, stream
+        lib.panel_spmm_launch.argtypes = [i64, i32] + [p] * 6
+        lib.panel_spmm_launch.restype = i32
+        # R, S, W, w, idx, out, stream
+        lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
+        lib.extract_lanes_launch.restype = i32
         _cuda_lib = lib
     return _cuda_lib

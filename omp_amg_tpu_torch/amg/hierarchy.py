@@ -19,6 +19,12 @@ reference's. Only the device forms differ:
   ``s = ω·dinv`` with ω = 4/(3·1.1·λmax) is precomputed in float32, as the
   reference's traced arithmetic computes it; on a ``ConstDia`` level, whose
   diagonal is constant, it is one number.
+
+With ``AMGParams(rap="probe")`` the PMIS setup takes each coarse operator's
+values from the device numeric phase (``ops/probe_rap.py``) on ``device``;
+the host product supplies the pattern, and the values of a level whose
+colouring needs more than 256 colours. ``"auto"`` and ``"host"`` keep the
+host values: the reference's ``"auto"`` picks the probe only on a TPU.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..sparse.formats import (
     dia_to_scipy, ell_planes_from_dia, ell_planes_from_scipy,
     ell_planes_to_scipy, to_const_dia,
 )
+from ..utils.device import resolve_device
 from .params import AMGParams
 from .structured import GridProlong, GridRestrict
 
@@ -70,10 +77,11 @@ class Hierarchy:
 def check_supported(params: AMGParams) -> None:
     """Raise for the parameters the port does not implement yet: it runs
     the classical PMIS and the structured setups with the host Galerkin
-    products, weighted Jacobi, the V-cycle and the Cholesky coarse solve."""
+    products (PMIS: or the device numeric phase, ``rap="probe"``), weighted
+    Jacobi, the V-cycle and the Cholesky coarse solve."""
     unsupported = {
         "coarsening": (params.coarsening, ("pmis", "auto", "structured")),
-        "rap": (params.rap, ("auto", "host")),
+        "rap": (params.rap, ("auto", "host", "probe")),
         "smoother": (params.smoother, ("jacobi",)),
         "cycle": (params.cycle, ("v",)),
         "coarse_solver": (params.coarse_solver, ("chol",)),
@@ -185,7 +193,7 @@ def fine_operator(a, device) -> Dia | Csr:
     when lossless), anything else becomes f32 ``Csr``."""
     if isinstance(a, Dia):
         return dia_to_device(a, device)
-    return csr_from_scipy(a, torch.float32, device)
+    return csr_from_scipy(a, torch.float32, device=device)
 
 
 @dataclass(frozen=True)
@@ -199,10 +207,11 @@ class HostSetup:
     p: list
 
 
-def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
+def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
               keep_host: bool = False, grid=None):
     """Build the AMG hierarchy for ``a`` (a numpy-backed ``Dia`` or a scipy
-    sparse matrix) with its device forms on ``device``.
+    sparse matrix) with its device forms on ``device`` (without CUDA,
+    ``"cuda"`` raises RuntimeError; a CPU run passes ``device="cpu"``).
 
     ``grid`` (extents, C order) enables the structured coarsening for
     tensor-grid stencil operators. Selection follows ``params.coarsening``,
@@ -218,9 +227,6 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
     from . import host_setup as hs
 
     check_supported(params)
-    device = torch.device(device)
-    tune_malloc()   # setup temporaries recycle heap pages (see memtune)
-
     structured = (params.coarsening == "structured"
                   or (params.coarsening == "auto" and grid is not None
                       and isinstance(a, Dia)))
@@ -228,6 +234,9 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
         n = a.n_rows if isinstance(a, Dia) else a.shape[0]
         if grid is None or int(np.prod(grid)) != n:
             raise ValueError("structured coarsening requires a matching grid")
+    device = resolve_device(device)
+    tune_malloc()   # setup temporaries recycle heap pages (see memtune)
+    if structured:
         return _amg_setup_structured(a, tuple(int(g) for g in grid), params,
                                      device, keep_host)
 
@@ -273,14 +282,16 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
         p_sp = ell_planes_to_scipy(p_col, p_val, nc)
         pt_sp = p_sp.T.tocsr()
         ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
+        if params.rap == "probe":
+            ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
         dinv = 1.0 / a_sp.diagonal()
         lmax = _estimate_lmax_host(a_sp, dinv)
         if a_lvl is None:
-            a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device)
+            a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device=device)
         pr_dt = _value_dtype(n)
         levels.append(make_level(a_lvl, dinv, lmax,
-                                 csr_from_scipy(p_sp, pr_dt, device),
-                                 csr_from_scipy(pt_sp, pr_dt, device),
+                                 csr_from_scipy(p_sp, pr_dt, device=device),
+                                 csr_from_scipy(pt_sp, pr_dt, device=device),
                                  params, device))
         if keep_host:
             host.states.append(state)
@@ -297,6 +308,23 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cpu",
     if keep_host:
         return hier, host
     return hier
+
+
+def _probe_values(a_sp, p_sp, ac_sp, device):
+    """A_c with its values from the device numeric phase (f32 results, as
+    float64, written in CSR order: ELL slot s of a row is CSR position s,
+    because ``galerkin_product`` returns A_c zero-free and sorted), or
+    ``ac_sp`` itself when the colouring exceeds the cap."""
+    from ..ops.probe_rap import build_rap_probe, ell_slots, rap_probe_numeric
+
+    probe, _ = build_rap_probe(a_sp, p_sp, ac_sp=ac_sp, device=device)
+    if probe is None:
+        return ac_sp
+    vals = rap_probe_numeric(probe).cpu().numpy()
+    out = ac_sp.copy()
+    # row-major selection of the real slots = CSR order
+    out.data = vals[ell_slots(ac_sp, vals.shape[1])].astype(np.float64)
+    return out
 
 
 def _estimate_lmax_apply(apply_fn, dinv: np.ndarray, n: int,

@@ -18,6 +18,7 @@ from .amg.hierarchy import Hierarchy, make_level
 from .amg.params import AMGParams
 from .amg.structured import GridProlong, GridRestrict
 from .sparse.formats import ConstDia, Dia, csr_from_ell, dia_to_device
+from .utils.device import resolve_device
 
 
 def _params(params) -> AMGParams:
@@ -56,7 +57,7 @@ def _transfers(lv, device):
 
 
 def hierarchy_from_numpy(levels, coarse_chol, params,
-                         device="cpu") -> Hierarchy:
+                         device="cuda") -> Hierarchy:
     """Port ``Hierarchy`` from numpy arrays.
 
     ``levels`` is a sequence of dicts, one per level, with ``dinv`` and
@@ -74,7 +75,7 @@ def hierarchy_from_numpy(levels, coarse_chol, params,
     (such as the reference's).
     """
     params = _params(params)
-    device = torch.device(device)
+    device = resolve_device(device)
     out = [make_level(_operator(lv, device), lv["dinv"], lv["lmax"],
                       *_transfers(lv, device), params, device)
            for lv in levels]

@@ -2,8 +2,9 @@
 
 Counterpart of ``omp_amg_tpu/native.py``, cut to the entry points the host
 setups call: ``strength_mask``, ``pmis``, ``extpi_interp``, ``spgemm``,
-``CsrMatvec`` and ``ell_fill`` (PMIS); ``dia_apply``, ``prolong``,
-``restrict`` and ``rap_stencil`` (structured). numpy only. The library is
+``CsrMatvec``, ``ell_fill`` and ``d2_color`` (PMIS, the last for
+``AMGParams(rap="probe")``); ``dia_apply``, ``prolong``, ``restrict`` and
+``rap_stencil`` (structured). numpy only. The library is
 built on first use by :mod:`omp_amg_tpu_torch._build` (never the committed
 ``csrc/libamgnative.so``). As in the reference, each entry point returns
 None, or runs its numpy twin, when the library could not be built;
@@ -71,6 +72,8 @@ def _load():
     lib.rap_stencil_f64.argtypes = [i64, i64p, i64p, i64p, i64, i64p, i64p,
                                     f64p, f64p]
     lib.rap_stencil_f64.restype = None
+    lib.d2_color_greedy.argtypes = [i64, i64, i64p, i32p, i64p, i32p, i32p]
+    lib.d2_color_greedy.restype = i64
     _lib = lib
     return _lib
 
@@ -143,6 +146,32 @@ def extpi_interp(col, val, mask, state, cmap, n_coarse,
         lib.extpi_interp_f64(*args, np.ascontiguousarray(val, np.float64),
                              *tail)
     return p_col, p_val
+
+
+def d2_color(m):
+    """Distance-2 greedy column colouring of a scipy sparse matrix (columns
+    in ascending order, per-row colour bitmasks, lowest free colour).
+
+    Returns (colours int32 over the columns, n_colours), or None when the
+    library is unavailable or more than 256 colours would be needed.
+    """
+    import scipy.sparse as sp
+
+    lib = _load()
+    if lib is None:
+        return None
+    csr = sp.csr_matrix(m)
+    csc = csr.tocsc()
+    colors = np.empty(csr.shape[1], np.int32)
+    nc = lib.d2_color_greedy(
+        csr.shape[0], csr.shape[1],
+        np.ascontiguousarray(csr.indptr, np.int64),
+        np.ascontiguousarray(csr.indices, np.int32),
+        np.ascontiguousarray(csc.indptr, np.int64),
+        np.ascontiguousarray(csc.indices, np.int32), colors)
+    if nc < 0:
+        return None
+    return colors, int(nc)
 
 
 def spgemm(a, b):

@@ -11,8 +11,12 @@
     solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128, 128, 128),
                            device="cuda")          # structured
 
-The device is an argument; ``device="cuda"`` without CUDA raises, and
-nothing moves to the CPU on its own.
+    solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis", rap="probe"),
+                           device="cuda")          # Galerkin values from the
+                                                   # device numeric phase
+
+The device defaults to ``"cuda"``; without CUDA that raises, and nothing
+moves to the CPU on its own: a CPU run passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -29,16 +33,7 @@ from .amg.vcycle import vcycle
 from .native import CsrMatvec
 from .solvers.cg import amg_pcg
 from .solvers.ir import solve_ir
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises if it is CUDA and CUDA is not
-    available."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' requested but torch.cuda is not "
-                           "available")
-    return device
+from .utils.device import resolve_device
 
 
 class AMGSolver:
@@ -46,7 +41,7 @@ class AMGSolver:
     PMIS or, with ``grid=``, structured hierarchy; f64-certified by
     default)."""
 
-    def __init__(self, a, params: AMGParams = AMGParams(), *, device="cpu",
+    def __init__(self, a, params: AMGParams = AMGParams(), *, device="cuda",
                  grid=None, mesh=None, flavor: str = "host",
                  refreshable: bool = False):
         if mesh is not None:

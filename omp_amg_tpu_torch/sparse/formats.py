@@ -135,7 +135,7 @@ def _tap_decompose(d: int, dims) -> Tuple[int, int, int] | None:
     return None if best is None else best[1:]
 
 
-def to_const_dia(a: Dia, device="cpu") -> ConstDia | None:
+def to_const_dia(a: Dia, device) -> ConstDia | None:
     """Host ``Dia`` (numpy data) → ``ConstDia`` on ``device`` when the
     operator is a masked-constant 3D stencil, else None.
 
@@ -212,7 +212,7 @@ def dia_to_device(a: Dia, device) -> Dia:
                dims=a.dims)
 
 
-def csr_from_scipy(m, dtype=torch.float32, device="cpu") -> Csr:
+def csr_from_scipy(m, dtype=torch.float32, *, device) -> Csr:
     """scipy sparse → device ``Csr``. Values round f64 → f32 (→ bf16 when
     ``dtype`` is bfloat16, round to nearest even)."""
     import scipy.sparse as sp
@@ -227,7 +227,7 @@ def csr_from_scipy(m, dtype=torch.float32, device="cpu") -> Csr:
 
 
 def csr_from_ell(col: np.ndarray, val: np.ndarray, n_cols: int,
-                 device="cpu") -> Csr:
+                 device) -> Csr:
     """Padded ELL planes → ``Csr``, dropping the padding (val == 0) and
     keeping each row's slot order and the value dtype."""
     col = np.asarray(col)

@@ -43,7 +43,7 @@ def _pair(name, *shape):
                                     offsets=a_r.offsets, dims=a_r.dims))
     a_p = gen_p(*shape)
     cd_p = to_const_dia(Dia(data=a_p.data.astype(np.float32),
-                            offsets=a_p.offsets, dims=a_p.dims))
+                            offsets=a_p.offsets, dims=a_p.dims), device="cpu")
     assert cd_r is not None and cd_p is not None
     return cd_r, cd_p
 
@@ -135,7 +135,8 @@ DETECTION = {
 def test_detection_matches_reference(case):
     a = DETECTION[case]()
     data32 = np.asarray(a.data, np.float32)
-    got = to_const_dia(Dia(data=data32, offsets=a.offsets, dims=a.dims))
+    got = to_const_dia(Dia(data=data32, offsets=a.offsets, dims=a.dims),
+                       device="cpu")
     want = ref_to_const_dia(ref.Dia(data=data32, offsets=a.offsets,
                                     dims=a.dims))
     assert (got is None) == (want is None)

@@ -70,7 +70,7 @@ def test_csr_modes_match_routed_kernel(operators, op, mode, dtype):
     assert rt is not None
     # the plan's own (possibly bf16-rounded) values: both sides multiply
     # exactly the same numbers
-    pa = csr_from_scipy(routed_to_scipy(rt), tdt)
+    pa = csr_from_scipy(routed_to_scipy(rt), tdt, device="cpu")
     n_rows, n_cols = m.shape
     rng = np.random.default_rng(7)
     x = rng.standard_normal(n_cols).astype(np.float32)
@@ -101,12 +101,12 @@ def test_csr_plain_matches_scipy_with_empty_rows():
                                 [0.0, 0.0, 0.0],
                                 [1.5, 0.0, -1.0]]))
     x = np.array([1.0, -2.0, 4.0], np.float32)
-    y = csr_spmv.spmv(csr_from_scipy(m), torch.from_numpy(x))
+    y = csr_spmv.spmv(csr_from_scipy(m, device="cpu"), torch.from_numpy(x))
     np.testing.assert_array_equal(y.numpy(), (m @ x).astype(np.float32))
 
 
 def test_csr_wrapper_checks(operators):
-    pa = csr_from_scipy(operators["P0"])
+    pa = csr_from_scipy(operators["P0"], device="cpu")
     x = torch.zeros(pa.n_cols)
     before = csr_spmv.launches
     csr_spmv.spmv(pa, x)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each kernel × mode × value type
 against its plain twin on the same CUDA tensors, and the GPU solves'
-iteration counts (PMIS and structured) against the port's CPU solves. Needs
-an NVIDIA GPU and nvcc; skipped elsewhere (the CPU runs only the twins). Run
-on the card with
+iteration counts (PMIS, PMIS with the probed Galerkin values, and
+structured) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
+skipped elsewhere (the CPU runs only the twins). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
@@ -12,8 +12,12 @@ import pytest
 import torch
 
 import omp_amg_tpu_torch as amg
-from omp_amg_tpu_torch.ops import const_stencil, csr_spmv, dia_spmv
-from omp_amg_tpu_torch.sparse.formats import ConstDia, Csr, Dia, to_const_dia
+from omp_amg_tpu_torch.ops import (
+    const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm, probe_rap,
+)
+from omp_amg_tpu_torch.sparse.formats import (
+    ConstDia, Csr, Dia, csr_from_scipy, to_const_dia,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -124,8 +128,96 @@ def test_const_stencil_kernel_chunks_large_grids(dims):
            const_stencil.const_stencil_plain(a, x, "residual", b=b), 0.0)
 
 
+def _random_csr(rng, n_rows, n_cols, per_row):
+    """Random CSR with every fifth row empty and some stored zeros."""
+    import scipy.sparse as sp
+
+    rows = np.repeat(np.arange(n_rows), per_row)
+    rows = rows[rows % 5 != 0]
+    vals = rng.standard_normal(len(rows))
+    vals[::7] = 0.0
+    m = sp.csr_matrix((vals, (rows, rng.integers(0, n_cols, len(rows)))),
+                      shape=(n_rows, n_cols))
+    m.sum_duplicates()
+    return m
+
+
+@pytest.mark.parametrize("c", [1, 16, 32, 45, 96, 128])
+def test_panel_spmm_matches_twin_on_random_operators(c):
+    _need_cuda()
+    rng = np.random.default_rng(4)
+    for n_rows, n_cols, per_row in ((1000, 700, 9), (300, 5000, 60)):
+        a = csr_from_scipy(_random_csr(rng, n_rows, n_cols, per_row),
+                           device="cuda")
+        x = torch.from_numpy(rng.standard_normal((n_cols, c))
+                             .astype(np.float32)).cuda()
+        before = panel_spmm.launches
+        got = panel_spmm.spmm_panel(a, x)
+        assert panel_spmm.launches == before + 1
+        # explicit rounding in CSR order: bitwise the twin
+        _check(got, panel_spmm.spmm_panel_plain(a, x), 0.0)
+
+
+@pytest.fixture(scope="module")
+def probes():
+    _need_cuda()
+    params = amg.AMGParams(coarsening="pmis", rap="probe")
+    _, host = amg.amg_setup(amg.poisson3d_7pt(24), params, device="cuda",
+                            keep_host=True)
+    out = []
+    for l in range(len(host.p)):
+        probe, _ = probe_rap.build_rap_probe(host.ops[l], host.p[l],
+                                             device="cuda")
+        if probe is not None:
+            out.append(probe)
+    return out
+
+
+def test_probe_kernels_match_twins_on_24cubed_levels(probes):
+    assert probes
+    for probe in probes:
+        parts = []
+        for c0, width in probe.groups:
+            pv = probe_rap.panel_pv(probe, c0, width)
+            u = panel_spmm.spmm_panel(probe.a, pv)
+            _check(u, panel_spmm.spmm_panel_plain(probe.a, pv), 0.0)
+            w = panel_spmm.spmm_panel(probe.r, u)
+            _check(w, panel_spmm.spmm_panel_plain(probe.r, u), 0.0)
+            parts.append(w)
+        w = torch.cat(parts, dim=1)
+        before = extract_lanes.launches
+        got = extract_lanes.extract_lanes(w, probe.ac_cidx)
+        assert extract_lanes.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, extract_lanes.extract_lanes_plain(
+            w, probe.ac_cidx))
+
+
+def test_extract_lanes_exact_any_width():
+    _need_cuda()
+    rng = np.random.default_rng(6)
+    for rows, width, s in ((256, 128, 256), (1000, 200, 37), (5, 1, 3)):
+        w = torch.from_numpy(rng.standard_normal((rows, width))
+                             .astype(np.float32)).cuda()
+        idx = torch.from_numpy(rng.integers(0, width, (rows, s))
+                               .astype(np.int32)).cuda()
+        got = extract_lanes.extract_lanes(w, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.gather(w, 1, idx.long()))
+
+
+def test_entry_points_default_to_the_card():
+    _need_cuda()
+    a = amg.poisson3d_7pt(8)
+    solver = amg.AMGSolver(a, PARAMS)
+    assert solver.device.type == "cuda"
+    assert solver.hierarchy.device.type == "cuda"
+    assert amg.amg_setup(a, PARAMS).device.type == "cuda"
+
+
 @pytest.mark.parametrize("n,params,grid", [
     (24, PARAMS, None),
+    (24, amg.AMGParams(coarsening="pmis", rap="probe"), None),
     (32, amg.AMGParams(), (32, 32, 32)),
 ])
 def test_gpu_solve_matches_cpu_iterations(n, params, grid):

@@ -1,8 +1,8 @@
 """The port stands alone: importing ``omp_amg_tpu_torch`` and running small
-CPU solves on both paths (classical PMIS, and structured with ``grid=``)
-loads neither JAX nor the reference package ``omp_amg_tpu`` (the machine
-with the GPU has no JAX). Runs in a fresh interpreter, since this test
-process has both loaded."""
+CPU solves on its paths (classical PMIS with the host and with the probed
+Galerkin values, and structured with ``grid=``) loads neither JAX nor the
+reference package ``omp_amg_tpu`` (the machine with the GPU has no JAX).
+Runs in a fresh interpreter, since this test process has both loaded."""
 
 import json
 import subprocess
@@ -16,10 +16,12 @@ import json, sys
 import torch
 torch.set_num_threads(2)
 import omp_amg_tpu_torch as amg
-a = amg.poisson3d_7pt(8)
 infos = []
-for kw in (dict(params=amg.AMGParams(coarsening="pmis")),
-           dict(params=amg.AMGParams(), grid=(8, 8, 8))):
+for n, kw in ((8, dict(params=amg.AMGParams(coarsening="pmis"))),
+              (8, dict(params=amg.AMGParams(), grid=(8, 8, 8))),
+              (12, dict(params=amg.AMGParams(coarsening="pmis",
+                                             rap="probe")))):
+    a = amg.poisson3d_7pt(n)
     solver = amg.AMGSolver(a, kw.pop("params"), device="cpu", **kw)
     solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
     infos.append({k: solver.last_info[k]
@@ -37,7 +39,8 @@ def test_port_imports_no_jax_and_solves():
     assert out.returncode == 0, out.stderr[-4000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert [i["structured"] for i in res["infos"]] == ["Csr", "GridProlong"]
+    assert ([i["structured"] for i in res["infos"]]
+            == ["Csr", "GridProlong", "Csr"])
     for info in res["infos"]:
         assert info["rel_residual"] <= 1e-8
         assert info["iters"] > 0

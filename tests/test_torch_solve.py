@@ -48,7 +48,8 @@ def test_vcycle_matches_reference(n):
     hier_j = ref_setup(ref.poisson3d_7pt(n, backend="numpy"),
                        RefParams(coarsening="pmis"))
     levels, chol = _hierarchy_to_numpy(hier_j)
-    hier_t = port.hierarchy_from_numpy(levels, chol, hier_j.params)
+    hier_t = port.hierarchy_from_numpy(levels, chol, hier_j.params,
+                                       device="cpu")
     assert hier_t.n_levels == hier_j.n_levels
     b = np.random.default_rng(3).standard_normal(n ** 3).astype(np.float32)
     want = np.asarray(jax.jit(ref_vcycle)(hier_j, jnp.asarray(b)),
@@ -88,7 +89,8 @@ def test_certified_solve_matches_reference(n):
 
 def test_uncertified_solve_and_precondition():
     a = port.poisson3d_7pt(12)
-    solver = port.AMGSolver(a, port.AMGParams(coarsening="pmis"))
+    solver = port.AMGSolver(a, port.AMGParams(coarsening="pmis"),
+                            device="cpu")
     b = port.default_rhs(a, seed=1)
     x = solver.solve(b, tol=1e-5, certify=False)
     assert isinstance(x, torch.Tensor) and x.dtype == torch.float32
@@ -114,3 +116,19 @@ def test_solver_raises_on_unported_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         port.AMGSolver(a, p, device="cuda")
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a device argument the entry points run on the card; without
+    CUDA they raise, naming it, instead of moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = port.poisson3d_7pt(8)
+    p = port.AMGParams(coarsening="pmis")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.AMGSolver(a, p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.amg_setup(a, p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.amg_setup(a, port.AMGParams(), grid=(8, 8, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.hierarchy_from_numpy([], np.ones((1, 1)), p)

@@ -52,7 +52,7 @@ def setups(request):
     hier_j, ops_j = ref_setup(make(_Ref()), RefParams(), grid=dims,
                               keep_host=True)
     hier_t, host = port.amg_setup(make(_Port()), port.AMGParams(), grid=dims,
-                                  keep_host=True)
+                                  device="cpu", keep_host=True)
     return request.param, hier_j, ops_j, hier_t, host
 
 
@@ -148,7 +148,7 @@ def test_setup_refuses_levels_beyond_the_kernel_limits(dims, radii, kernel):
     taps[(0,) * len(dims)] = float(len(taps))
     a = port.stencil_to_dia(dims, taps)
     with pytest.raises(ValueError, match=f"the {kernel} kernel"):
-        port.amg_setup(a, port.AMGParams(), grid=dims)
+        port.amg_setup(a, port.AMGParams(), grid=dims, device="cpu")
 
 
 def test_structured_needs_a_matching_grid():
@@ -158,5 +158,5 @@ def test_structured_needs_a_matching_grid():
     with pytest.raises(ValueError):
         port.amg_setup(a, port.AMGParams(), grid=(8, 8, 4))
     # "auto" without a grid is the classical (PMIS) setup
-    hier = port.amg_setup(a, port.AMGParams())
+    hier = port.amg_setup(a, port.AMGParams(), device="cpu")
     assert not isinstance(hier.levels[0].p, structured.GridProlong)

@@ -69,7 +69,8 @@ def test_vcycle_matches_reference(name, sweeps):
     hier_j = ref_setup(a_j, RefParams(nu_pre=sweeps, nu_post=sweeps),
                        grid=dims)
     levels, chol = _hierarchy_to_numpy(hier_j)
-    hier_t = port.hierarchy_from_numpy(levels, chol, hier_j.params)
+    hier_t = port.hierarchy_from_numpy(levels, chol, hier_j.params,
+                                       device="cpu")
     assert hier_t.n_levels == hier_j.n_levels
     assert ([type(lv.a).__name__ for lv in hier_t.levels]
             == [type(lv.a).__name__ for lv in hier_j.levels])
@@ -145,7 +146,8 @@ def test_structured_solver_options():
     a = port.poisson3d_7pt(8)
     with pytest.raises(ValueError):
         port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), refreshable=True)
-    solver = port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8))
+    solver = port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8),
+                            device="cpu")
     # an 8×8 plane fails the 128-lane rule, so level 0 stays banded
     assert isinstance(solver.a_dev, port.Dia)
     z = solver.precondition(port.default_rhs(a, seed=1))
