@@ -39,7 +39,19 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``dia_spmv`` checks on its fine and 512² operators (the operators the
    TPU's ``_dia_kernel`` serves);
 9. iteration parity of the structured GPU solves against the port's plain
-   CPU solves on ``bench.py``'s structured configs.
+   CPU solves on ``bench.py``'s structured configs;
+10. the z-slab distributed structured path on one card: ``AMGSolver(
+   poisson3d_7pt(n), AMGParams(), grid=(n,)*3, mesh=ShardMesh(4, "cuda"),
+   transport="remote").solve(b, tol=1e-8)`` (10a; ``remote_halo`` and
+   ``dia_spmv`` must both launch), the same solve with ``transport=
+   "ppermute"`` (x bitwise equal, counts equal) and on ``ShardMesh(1)``
+   (the partition-invariance contract: equal inner counts, a difference of
+   one printed with both residual histories), and a ``torch.profiler`` run
+   of one warm solve (device busy share, the largest kernels); then (10b)
+   ``remote_halo`` on the sharded levels L0, L1, L2 at d = 4 and L0 at
+   d = 8, exact against its twin, the masked windows against the plain
+   exchange, and ``dia_spmv``'s x-window mode on an L0 shard; (10c) the
+   sharded GPU/CPU iteration parity at 32³, 4 shards.
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after; certified and scipy f64 residuals are checked. Every
@@ -67,6 +79,9 @@ CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
 CONST_BOUND = 1e-6  # same products and order as the twin: expected 0
 PROBE_BOUND = 1e-6  # panel_spmm and extract_lanes: bitwise the twin,
                     # expected 0
+HALO_BOUND = 0.0    # remote_halo is a copy: exact
+SHARDS = 4          # z-slab shards of the distributed path on the one card
+SHARD_PARITY_N = 32  # the sharded GPU/CPU iteration-parity grid
 RAP_BOUND = 3e-6    # probed A_c against the host product (f32 sums)
 SEED = 0            # right-hand side and kernel-check inputs
 PARITY_N = 64       # the PMIS GPU/CPU iteration-parity grid
@@ -102,8 +117,10 @@ def card_info() -> str:
 def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` warm calls, each
     between its own pair of CUDA events. With ``flush`` (a tensor larger
-    than the 50 MB L2), the L2 is overwritten before every timed call, which
-    also keeps the stream busy while the host enqueues the call."""
+    than the 50 MB L2), the L2 is overwritten before every timed call, and
+    a spin of about 0.1 ms (``torch.cuda._sleep``) then keeps the stream
+    busy while the host enqueues the call, so that a call whose enqueue
+    takes longer than the flush is still timed on the device alone."""
     import torch
 
     for _ in range(warm):
@@ -113,6 +130,7 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -132,15 +150,18 @@ def card_peak(name: str):
 
 
 def compare(name, kernel, plain, bound, nbytes, flush, library=None,
-            flops=0):
+            flops=0, flat=None):
     """Run kernel and twin once, check the bound, time both with a cold L2,
     and the ``library`` call (one PyTorch call computing the same function)
     where there is one; a result row. ``nbytes`` counts each input read
-    once and each output written once, ``flops`` the f32 operations."""
+    once and each output written once, ``flops`` the f32 operations.
+    ``flat`` turns a kernel's, twin's or library's result into one tensor
+    for the comparison (default: it is one)."""
     import torch
 
-    y = kernel()
-    ref = plain()
+    flat = flat or (lambda t: t)
+    y = flat(kernel())
+    ref = flat(plain())
     torch.cuda.synchronize()
     err = float((y - ref).abs().max()) if y.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
@@ -149,7 +170,7 @@ def compare(name, kernel, plain, bound, nbytes, flush, library=None,
     plain_ms = cuda_ms(plain, flush=flush)
     library_ms = library_err = None
     if library is not None:
-        lib_y = library().reshape(ref.shape).float()
+        lib_y = flat(library()).reshape(ref.shape).float()
         torch.cuda.synchronize()
         library_err = (float((lib_y - ref).abs().max()) if ref.numel()
                        else 0.0)
@@ -337,11 +358,13 @@ def const_checks(tag, a, rng, flush):
             for mode, (kern, pl, nbytes) in cases.items()]
 
 
-def drive(label, a, params, grid, counters):
+def drive(label, a, params, grid, counters, vcycle=None, **kw):
     """Drive one main path through the user's entry points: counters set to
     0 just before, read just after; certified and scipy f64 residuals
-    checked; then a warm solve and the V-cycle time. Returns (solver,
-    launches, run): run holds setup_s and the solve's ``last_info``."""
+    checked; then a warm solve and the V-cycle time (``vcycle(solver, r)``,
+    default the single-device ``amg.vcycle``). ``kw`` goes to
+    ``AMGSolver`` (a mesh, its transport). Returns (solver, launches, run):
+    run holds setup_s, warm_solve_s, x and the solve's ``last_info``."""
     import torch
 
     import omp_amg_tpu_torch as amg
@@ -350,7 +373,7 @@ def drive(label, a, params, grid, counters):
     for mod in counters.values():
         mod.launches = 0
     t0 = time.perf_counter()
-    solver = amg.AMGSolver(a, params, grid=grid, device="cuda")
+    solver = amg.AMGSolver(a, params, grid=grid, device="cuda", **kw)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -382,10 +405,14 @@ def drive(label, a, params, grid, counters):
     torch.cuda.synchronize()
     warm_solve_s = time.perf_counter() - t0
     r = b.to("cuda")
-    vcycle_ms = cuda_ms(lambda: amg.vcycle(solver.hierarchy, r))
+    if vcycle is None:
+        def vcycle(solver, r):
+            return amg.vcycle(solver.hierarchy, r)
+    vcycle_ms = cuda_ms(lambda: vcycle(solver, r))
     print(f"{label} warm_solve_s={warm_solve_s:.3f} "
           f"vcycle_ms={vcycle_ms:.4f}", flush=True)
-    return solver, launches, dict(setup_s=setup_s, info=info)
+    return solver, launches, dict(setup_s=setup_s, info=info, x=x,
+                                  warm_solve_s=warm_solve_s)
 
 
 def expect_launches(label, launches, used):
@@ -396,15 +423,19 @@ def expect_launches(label, launches, used):
                                  f"expected {'>0' if name in used else 0}")
 
 
-def parity(label, a, params, grid, record=None):
+def parity(label, a, params, grid, record=None, shards=None, **kw):
     """The GPU solve's inner and outer counts against the port's own CPU
-    solve; a difference prints both residual histories and fails."""
+    solve; a difference prints both residual histories and fails. With
+    ``shards``, both run on a ``ShardMesh`` of that many shards (``kw``:
+    more ``AMGSolver`` arguments)."""
     import omp_amg_tpu_torch as amg
 
     b = amg.default_rhs(a, seed=SEED)
     runs = {}
     for dev in ("cuda", "cpu"):
-        s = amg.AMGSolver(a, params, grid=grid, device=dev)
+        if shards is not None:
+            kw["mesh"] = amg.ShardMesh(shards, dev)
+        s = amg.AMGSolver(a, params, grid=grid, device=dev, **kw)
         s.solve(b, tol=1e-8)
         runs[dev] = s.last_info
     g, c = runs["cuda"], runs["cpu"]
@@ -564,6 +595,168 @@ def rap_bench(n):
           f"host_gnnz_per_s={a0.nnz / host_s / 1e9:.4f}", flush=True)
 
 
+def profile_solve(label, solver, b, top=8):
+    """One warm certified solve under ``torch.profiler``: wall seconds,
+    device busy milliseconds (the profiler's "Self CUDA time total": the
+    self device time of the device events) and their share of the wall,
+    and the ``top`` device items by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve(b, tol=1e-8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    items = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    print(f"profile {label} wall_s={wall:.4f} device_busy_ms={busy_ms:.3f} "
+          f"busy_share={busy_ms / 1e3 / wall:.4f} device_items="
+          f"{sum(e.count for e in dev)}", flush=True)
+    for e in items + [e for e in dev if e not in items and any(
+            k in e.key for k in ("remote_halo_kernel", "dia_spmv_kernel"))]:
+        print(f"profile {label} item ms={e.self_device_time_total / 1e3:.3f}"
+              f" count={e.count} us_each="
+              f"{e.self_device_time_total / max(e.count, 1):.2f} "
+              f"name={e.key[:90]}", flush=True)
+
+
+def sharded_path(n, counters, flush, rng):
+    """Phase 10: the z-slab distributed path (module docstring); returns
+    (launches of its main-path run, kernel rows)."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import dia_spmv
+    from omp_amg_tpu_torch.ops import remote_halo as rh
+    from omp_amg_tpu_torch.parallel.dist import dist_vcycle
+    from omp_amg_tpu_torch.parallel.slab import (
+        _exchange_planes, _exchange_planes_remote,
+    )
+
+    a = amg.poisson3d_7pt(n)
+    grid = (n,) * 3
+    params = amg.AMGParams()
+
+    def vcycle(solver, r):
+        return dist_vcycle(solver.hierarchy, solver.mesh.shard(r))
+
+    # 10a: the main path, remote transport
+    solver, launches, run = drive(
+        f"sharded d={SHARDS} remote n={n}^3", a, params, grid, counters,
+        vcycle=vcycle, mesh=amg.ShardMesh(SHARDS, "cuda"),
+        transport="remote")
+    print(f"sharded d={SHARDS} stats={solver.stats()}", flush=True)
+    expect_launches("sharded", launches, ("dia_spmv", "remote_halo"))
+    info = run["info"]
+    runs = {"remote": run}
+    for label, mesh, transport in (
+            ("ppermute", amg.ShardMesh(SHARDS, "cuda"), "ppermute"),
+            ("1-shard", amg.ShardMesh(1, "cuda"), "remote")):
+        _, _, runs[label] = drive(
+            f"sharded d={mesh.size} {transport} n={n}^3", a, params, grid,
+            counters, vcycle=vcycle, mesh=mesh, transport=transport)
+    pp = runs["ppermute"]
+    if not np.array_equal(pp["x"], run["x"]) or (
+            pp["info"]["inner_iters"], pp["info"]["outer_iters"]) != (
+            info["inner_iters"], info["outer_iters"]):
+        raise AssertionError("sharded: the ppermute solve differs from the "
+                             "remote one")
+    print(f"sharded ppermute == remote: x bitwise equal, inner "
+          f"{pp['info']['inner_iters']} outer {pp['info']['outer_iters']}",
+          flush=True)
+    one = runs["1-shard"]["info"]
+    diffs = [abs(u - v) for u, v in zip(one["inner_iters"],
+                                         info["inner_iters"])]
+    print(f"sharded partition invariance: d={SHARDS} inner "
+          f"{info['inner_iters']} outer {info['outer_iters']} | d=1 inner "
+          f"{one['inner_iters']} outer {one['outer_iters']}", flush=True)
+    if any(diffs) or one["outer_iters"] != info["outer_iters"]:
+        for tag, inf in ((f"d={SHARDS}", info), ("d=1", one)):
+            for k, hist in enumerate(inf["residual_histories"]):
+                print(f"history sharded {tag} outer={k}: "
+                      + " ".join(f"{h:.6e}" for h in hist), flush=True)
+        if max(diffs, default=0) > 1 or one["outer_iters"] != \
+                info["outer_iters"]:
+            raise AssertionError("sharded: 1-shard counts differ by more "
+                                 "than one inner iteration")
+    b = amg.default_rhs(a, seed=SEED)
+    profile_solve(f"sharded d={SHARDS} remote n={n}^3", solver, b)
+
+    # 10b: kernel checks at the main path's shapes
+    rows = {"remote_halo": [], "dia_spmv": []}
+    dh = solver.hierarchy
+    shapes = [(f"L{l}", SHARDS, lv.a.data[0].shape[1], lv.a.plane, lv.a.hl,
+               lv.a.hr) for l, lv in enumerate(dh.levels) if lv.sharded]
+    lv0 = dh.levels[0].a
+    shapes.append(("L0", 2 * SHARDS, n ** 3 // (2 * SHARDS), lv0.plane,
+                   lv0.hl, lv0.hr))
+    for tag, d, n_loc, plane, hl, hr in shapes:
+        srcs = [_vec(rng, n_loc, "cuda") for _ in range(d)]
+        nl, nr = hl * plane, hr * plane
+
+        def library(srcs=srcs, d=d, nl=nl, nr=nr):
+            return ([torch.cat([srcs[(i - 1) % d][n_loc - nl:]
+                                for i in range(d)])],
+                    [torch.cat([srcs[(i + 1) % d][:nr] for i in range(d)])])
+        rows["remote_halo"].append(compare(
+            f"remote_halo:{tag}:d={d}:n_loc={n_loc}:nl={nl}:nr={nr}",
+            lambda: rh.remote_halo(srcs, nl, nr),
+            lambda: rh.remote_halo_plain(srcs, nl, nr), HALO_BOUND,
+            8 * (nl + nr) * d, flush, library=library,
+            flat=lambda lr: torch.cat([*lr[0], *lr[1]])))
+        got = _exchange_planes_remote(srcs, plane, hl, hr)
+        want = _exchange_planes(srcs, plane, hl, hr)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, want)) or \
+                got[0][:nl].any() or got[-1][got[-1].numel() - nr:].any():
+            raise AssertionError(f"remote_halo {tag} d={d}: the masked "
+                                 "windows differ from the plain exchange")
+        print(f"check remote_halo:{tag}:d={d} masked windows == plain "
+              "exchange, global ends zero", flush=True)
+    # dia_spmv's x-window mode on shard 1 of L0 (its exchanged window)
+    lv = dh.levels[0]
+    xs = [_vec(rng, lv0.data[0].shape[1], "cuda") for _ in range(SHARDS)]
+    bs = [_vec(rng, lv0.data[0].shape[1], "cuda") for _ in range(SHARDS)]
+    win = _exchange_planes(xs, lv0.plane, lv0.hl, lv0.hr)[1]
+    base = lv0.hl * lv0.plane
+    blk, b1, s1 = lv0.blocks[1], bs[1], lv.s[1]
+    n_loc = blk.n_rows
+    vb = blk.data.numel() * blk.data.element_size() + 4 * win.numel() \
+        + 4 * n_loc
+    cases = {
+        "spmv": (lambda: dia_spmv.spmv(blk, win, x_base=base),
+                 lambda: dia_spmv.dia_spmv_plain(blk, win, x_base=base), vb),
+        "residual": (lambda: dia_spmv.residual(blk, win, b1, x_base=base),
+                     lambda: dia_spmv.dia_spmv_plain(blk, win, "residual",
+                                                     b1, x_base=base),
+                     vb + 4 * n_loc),
+        "jacobi": (lambda: dia_spmv.jacobi(blk, win, b1, s1, x_base=base),
+                   lambda: dia_spmv.dia_spmv_plain(blk, win, "jacobi", b1,
+                                                   s1, x_base=base),
+                   vb + 8 * n_loc),
+    }
+    vt = "bf16" if blk.data.dtype == torch.bfloat16 else "f32"
+    for mode, (kern, plain, nbytes) in cases.items():
+        rows["dia_spmv"].append(compare(
+            f"dia_spmv:SH-L0-shard1:{vt}:window-{mode}:n={n_loc}:"
+            f"x_len={win.numel()}:ndiag={len(blk.offsets)}", kern, plain,
+            DIA_BOUND, nbytes, flush, flops=2 * len(blk.offsets) * n_loc))
+    del solver, dh
+
+    # 10c: sharded GPU/CPU iteration parity
+    parity(f"sharded d={SHARDS} n={SHARD_PARITY_N}^3",
+           amg.poisson3d_7pt(SHARD_PARITY_N), params, (SHARD_PARITY_N,) * 3,
+           shards=SHARDS, transport="remote", agg_rows_per_dev=64)
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=128,
@@ -592,12 +785,13 @@ def main() -> int:
     from omp_amg_tpu_torch import _build, native
     from omp_amg_tpu_torch.ops import (
         const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
+        remote_halo,
     )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
-                "extract_lanes": extract_lanes}
+                "extract_lanes": extract_lanes, "remote_halo": remote_halo}
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -708,12 +902,18 @@ def main() -> int:
                      offsets=op.offsets, dims=op.dims)
         parity(label, op, amg.AMGParams(), grid, record)
 
+    # phase 10: the z-slab distributed structured path on one card
+    sh_launches, sh_rows = sharded_path(args.n, counters, flush, rng)
+    rows["remote_halo"] = sh_rows["remote_halo"]
+    rows["dia_spmv"] += sh_rows["dia_spmv"]
+
     if any(m.startswith(("jax", "omp_amg_tpu.")) or m == "omp_amg_tpu"
            for m in sys.modules):
         raise AssertionError("the JAX package was imported")
 
     paths = {"pmis": pmis_launches, "pmis_probe": probe_launches,
-             "structured_3d": s3_launches, "structured_2d": s2_launches}
+             "structured_3d": s3_launches, "structured_2d": s2_launches,
+             "sharded_3d": sh_launches}
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     print("main-path launches: " + " ".join(f"{k}={v}"
@@ -731,10 +931,11 @@ def main() -> int:
                 "bound_us": main_row["bound_us"],
                 "library_ms": main_row["library_ms"]}
 
-    print(f"kernels line: launches sum the four main paths; ms, plain_ms, "
+    print(f"kernels line: launches sum the five main paths; ms, plain_ms, "
           f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
           f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
-          f"panel_spmm:L0-A·PV and extract_lanes:L0 with a cold L2; "
+          f"panel_spmm:L0-A·PV, extract_lanes:L0 and "
+          f"remote_halo:L0:d={SHARDS} with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -756,6 +957,9 @@ def main() -> int:
         summary("extract_lanes", "omp_amg_tpu_torch/csrc/extract_lanes.cu",
                 "omp_amg_tpu/ops/pallas_spmm.py:624",
                 "extract_lanes:L0"),
+        summary("remote_halo", "omp_amg_tpu_torch/csrc/remote_halo.cu",
+                "omp_amg_tpu/parallel/slab.py:138",
+                f"remote_halo:L0:d={SHARDS}:"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

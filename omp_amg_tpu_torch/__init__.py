@@ -12,7 +12,12 @@ through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
   ``extract_lanes.cu`` gathers A_c out of them;
 - structured semicoarsening (``grid=``): ``const_stencil.cu`` for a
   matrix-free constant-stencil fine level, ``dia_spmv.cu`` for the banded
-  Galerkin levels, and the grid transfers as torch slices.
+  Galerkin levels, and the grid transfers as torch slices;
+- the same structured path distributed over z-slabs (``mesh=ShardMesh(d)``,
+  :mod:`.parallel`): per-shard setup, sharded V-cycle and PCG, the f64
+  certified outer loop; every shard-local product is one ``dia_spmv.cu``
+  launch over its exchanged window, and ``transport="remote"`` exchanges
+  the plane halos of all shards in one ``remote_halo.cu`` launch.
 
 The entry points (``AMGSolver``, ``amg_setup``, ``hierarchy_from_numpy``)
 run on the card by default (``device="cuda"``) and raise without CUDA; a CPU
@@ -26,7 +31,8 @@ from .amg.hierarchy import Hierarchy, Level, amg_setup, hierarchy_stats  # noqa:
 from .amg.params import AMGParams  # noqa: F401
 from .amg.structured import GridProlong, GridRestrict  # noqa: F401
 from .amg.vcycle import vcycle  # noqa: F401
-from .interop import hierarchy_from_numpy  # noqa: F401
+from .interop import dist_hierarchy_from_numpy, hierarchy_from_numpy  # noqa: F401
+from .parallel.mesh import ShardMesh  # noqa: F401
 from .problems.poisson import (  # noqa: F401
     aniso2d_9pt, default_rhs, poisson2d_5pt, poisson3d_7pt, poisson3d_27pt,
     stencil_to_dia,

@@ -120,8 +120,10 @@ def cuda_kernels() -> ctypes.CDLL:
         # mode, bf16, n_rows, indptr, indices, vals, x, v, b, s, out, stream
         lib.csr_spmv_launch.argtypes = [i32, i32, i64] + [p] * 9
         lib.csr_spmv_launch.restype = i32
-        # mode, bf16, n, ndiag, offsets, data, x, b, s, out, stream
-        lib.dia_spmv_launch.argtypes = [i32, i32, i64, i32] + [p] * 7
+        # mode, bf16, n, ndiag, offsets, data, x, x_base, x_len, b, s, out,
+        # stream
+        lib.dia_spmv_launch.argtypes = ([i32, i32, i64, i32] + [p] * 3
+                                        + [i64, i64] + [p] * 4)
         lib.dia_spmv_launch.restype = i32
         # mode, nz, ny, nx, ntaps, taps (host), coeffs (host), s, x, b, p,
         # out, stream
@@ -134,5 +136,9 @@ def cuda_kernels() -> ctypes.CDLL:
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32
+        # d, n, nl, nr, src table, left table, right table (host arrays of
+        # d device pointers), stream
+        lib.remote_halo_launch.argtypes = [i32, i64, i64, i64] + [p] * 4
+        lib.remote_halo_launch.restype = i32
         _cuda_lib = lib
     return _cuda_lib

@@ -30,6 +30,19 @@ import numpy as np
 from .structured import axis_deltas, grid_strides as _strides
 
 
+def coarse_offsets(coarse_dims) -> list:
+    """Static tap offsets of the comb-assembled coarse operator (sorted):
+    every radius-1 delta that fits the coarse grid (the distributed setup's
+    coarse DIA layout)."""
+    strides = _strides(coarse_dims)
+    offs = []
+    for delta in iproduct((-1, 0, 1), repeat=len(coarse_dims)):
+        if any(abs(dl) >= cd for dl, cd in zip(delta, coarse_dims)):
+            continue
+        offs.append(sum(dl * st for dl, st in zip(delta, strides)))
+    return sorted(offs)
+
+
 def dia_apply(offsets: Sequence[int], data, x):
     """y = A x for DIA planes (data[k, i] multiplies x[i+off])."""
     n = x.shape[0]

@@ -94,16 +94,18 @@ def check_supported(params: AMGParams) -> None:
                 f"(supported: {', '.join(ok)})")
 
 
-def jacobi_scale(dinv: np.ndarray, lmax, params: AMGParams) -> np.ndarray:
-    """s = ω·dinv in float32, ω = params.omega or 4/(3·1.1·λmax) computed in
-    float32 exactly as the reference's traced ``4.0 / (3.0 * 1.1 * lmax)``
-    (the Python constant 3.0·1.1 rounds to f32, then f32 ops)."""
-    dinv32 = np.asarray(dinv, np.float32)
+def jacobi_omega(lmax, params: AMGParams) -> np.float32:
+    """ω = params.omega or 4/(3·1.1·λmax), computed in float32 exactly as
+    the reference's traced ``4.0 / (3.0 * 1.1 * lmax)`` (the Python
+    constant 3.0·1.1 rounds to f32, then f32 ops)."""
     if params.omega is not None:
-        omega = np.float32(params.omega)
-    else:
-        omega = np.float32(4.0) / (np.float32(3.0 * 1.1) * np.float32(lmax))
-    return omega * dinv32
+        return np.float32(params.omega)
+    return np.float32(4.0) / (np.float32(3.0 * 1.1) * np.float32(lmax))
+
+
+def jacobi_scale(dinv: np.ndarray, lmax, params: AMGParams) -> np.ndarray:
+    """s = ω·dinv in float32 (ω from :func:`jacobi_omega`)."""
+    return jacobi_omega(lmax, params) * np.asarray(dinv, np.float32)
 
 
 def make_level(a, dinv, lmax, p, r, params: AMGParams, device) -> Level:

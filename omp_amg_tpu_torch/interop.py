@@ -4,7 +4,8 @@ the port, as numpy arrays.
 ``hierarchy_from_numpy`` takes per level the operator A, the transfers P and
 R, ``dinv`` and ``lmax``; plus the coarse Cholesky factor and the
 parameters. ELL padding (col 0, val 0) is dropped on the way to CSR; each
-row keeps its slot order.
+row keeps its slot order. ``dist_hierarchy_from_numpy`` does the same for
+a z-slab distributed hierarchy, onto a ``ShardMesh``.
 """
 
 from __future__ import annotations
@@ -81,3 +82,63 @@ def hierarchy_from_numpy(levels, coarse_chol, params,
            for lv in levels]
     chol = torch.tensor(np.asarray(coarse_chol, np.float32), device=device)
     return Hierarchy(levels=tuple(out), coarse_chol=chol, params=params)
+
+
+def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
+                              transport: str = "ppermute"):
+    """Port ``DistHierarchy`` (the z-slab distribution) from numpy arrays,
+    placed on ``mesh`` (a ``ShardMesh``).
+
+    ``levels`` is a sequence of dicts, one per level, with ``sharded``,
+    ``dinv`` (global rows), ``lmax`` and ``grid`` =
+    ``(fine_shape, coarse_shape, coarsened)``, and
+
+    - a sharded level: the global DIA planes ``a_data`` ``(ndiag, n)``,
+      ``a_offsets``, ``a_dims``, the halo planes ``hl`` and ``hr``, and the
+      transitions ``slice_in`` and ``gather_out`` (true where the next level
+      is replicated);
+    - a replicated level: ``a_data``, ``a_offsets`` and optional ``a_dims``
+      (a banded A).
+
+    Sharded levels split into ``mesh.size`` row blocks (values in bf16 when
+    that cast is lossless, else f32) and run ``transport``; replicated
+    levels take the single-device forms of ``hierarchy_from_numpy``.
+    ``params`` is an ``AMGParams`` or any dataclass with the same fields.
+    """
+    from .amg.hierarchy import jacobi_scale
+    from .parallel.dist import DistHierarchy, DistLevel
+    from .parallel.dist_setup import _compact
+    from .parallel.partition import _split
+    from .parallel.slab import SlabDia, SlabProlong, SlabRestrict
+
+    params = _params(params)
+    dev = mesh.device
+    out = []
+    for lv in levels:
+        fine, coarse, coarsened = lv["grid"]
+        shape = dict(fine_shape=tuple(int(d) for d in fine),
+                     coarse_shape=tuple(int(d) for d in coarse),
+                     coarsened=tuple(bool(c) for c in coarsened))
+        lmax = float(np.float32(lv["lmax"]))
+        dinv = np.asarray(lv["dinv"], np.float32)
+        s = torch.from_numpy(jacobi_scale(dinv, lmax, params))
+        dinv = torch.from_numpy(dinv.copy())
+        if lv["sharded"]:
+            data = torch.from_numpy(np.asarray(lv["a_data"], np.float32))
+            a = SlabDia(data=_compact(_split(data, mesh)),
+                        offsets=tuple(int(o) for o in lv["a_offsets"]),
+                        dims=tuple(int(d) for d in lv["a_dims"]),
+                        hl=int(lv["hl"]), hr=int(lv["hr"]),
+                        transport=transport)
+            out.append(DistLevel(
+                a=a, dinv=list(_split(dinv, mesh)),
+                p=SlabProlong(**shape, slice_in=bool(lv["slice_in"])),
+                r=SlabRestrict(**shape, gather_out=bool(lv["gather_out"])),
+                lmax=lmax, s=list(_split(s, mesh)), sharded=True))
+        else:
+            out.append(DistLevel(
+                a=_operator(lv, dev), dinv=dinv.to(dev),
+                p=GridProlong(**shape), r=GridRestrict(**shape), lmax=lmax,
+                s=s.to(dev), sharded=False))
+    chol = torch.tensor(np.asarray(coarse_chol, np.float32), device=dev)
+    return DistHierarchy(levels=tuple(out), coarse_chol=chol, params=params)

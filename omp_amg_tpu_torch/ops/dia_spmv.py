@@ -11,6 +11,13 @@ banded product; they differ only in TPU memory layout, so one kernel,
 ``A·x``, residual ``b − A·x``, jacobi ``x + s ⊙ (b − A·x)``. Values are f32
 or bf16; vectors and results are f32.
 
+``x`` may be a window longer than the operator's n rows: with ``x_base``,
+row i's tap reads ``x[x_base + i + off]`` where that index lies in the
+window (zero outside it). A z-slab shard of the distributed path
+(:mod:`omp_amg_tpu_torch.parallel.slab`) reads its exchanged window this
+way, one launch per shard-local product; ``x_base = 0`` over an n-row x is
+the single-device product.
+
 The wrappers run the plain twin for CPU tensors only. For CUDA tensors they
 launch the kernel or raise; nothing falls back.
 """
@@ -28,25 +35,26 @@ launches = 0         # kernel launches by the wrappers (CUDA only)
 
 
 def dia_spmv_plain(a: Dia, x: torch.Tensor, mode: str = "spmv", b=None,
-                   s=None) -> torch.Tensor:
+                   s=None, x_base: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of every kernel mode: taps summed in ascending k
     over a zero-padded x, as the reference's ``spmv_dia`` does."""
     n = a.n_rows
     y = torch.zeros(n, dtype=torch.float32, device=x.device)
     if a.offsets:
-        lo = max(0, -min(a.offsets))
-        hi = max(0, max(a.offsets))
+        lo = max(0, -(x_base + min(a.offsets)))
+        hi = max(0, x_base + n + max(a.offsets) - x.numel())
         xp = torch.nn.functional.pad(x, (lo, hi))
         for k, off in enumerate(a.offsets):
-            y = y + a.data[k].float() * xp[off + lo: off + lo + n]
+            start = x_base + off + lo
+            y = y + a.data[k].float() * xp[start: start + n]
     if mode == "residual":
         return b - y
     if mode == "jacobi":
-        return x + s * (b - y)
+        return x[x_base: x_base + n] + s * (b - y)
     return y
 
 
-def _check(a: Dia, x, vecs):
+def _check(a: Dia, x, vecs, x_base: int):
     if not isinstance(a.data, torch.Tensor):
         raise TypeError("device DIA operator expected (torch data); use "
                         "sparse.formats.dia_to_device")
@@ -59,10 +67,16 @@ def _check(a: Dia, x, vecs):
     if len(a.offsets) > MAX_DIAG:
         raise ValueError(f"{len(a.offsets)} diagonals > kernel limit "
                          f"{MAX_DIAG}")
-    for t in (x, *vecs):
+    for t in vecs:
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"vectors must be float32 of shape ({n},), got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"x must be a float32 vector, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not 0 <= x_base <= x.numel() - n:
+        raise ValueError(f"the window x[{x_base}:{x_base + n}] of the "
+                         f"{n} rows lies outside x ({x.numel()} values)")
     for t in (a.data, x, *vecs):
         if t.device != x.device:
             raise ValueError("operator and vectors on different devices")
@@ -70,11 +84,12 @@ def _check(a: Dia, x, vecs):
             raise ValueError("DIA kernel operands must be contiguous")
 
 
-def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None):
+def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None,
+           x_base: int = 0):
     vecs = tuple(v for v in (b, s) if v is not None)
-    _check(a, x, vecs)
+    _check(a, x, vecs, x_base)
     if x.device.type == "cpu":
-        return dia_spmv_plain(a, x, mode, b, s)
+        return dia_spmv_plain(a, x, mode, b, s, x_base)
     if x.device.type != "cuda":
         raise ValueError(f"no DIA kernel for device {x.device}")
     if x.device.index != torch.cuda.current_device():
@@ -88,7 +103,7 @@ def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None):
     rc = lib.dia_spmv_launch(
         _MODES[mode], int(a.data.dtype == torch.bfloat16), a.n_rows,
         len(a.offsets), offsets.data_ptr(), a.data.data_ptr(), x.data_ptr(),
-        None if b is None else b.data_ptr(),
+        x_base, x.numel(), None if b is None else b.data_ptr(),
         None if s is None else s.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -98,17 +113,19 @@ def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None):
     return out
 
 
-def spmv(a: Dia, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x."""
-    return _apply(a, x, "spmv")
+def spmv(a: Dia, x: torch.Tensor, x_base: int = 0) -> torch.Tensor:
+    """y = A·x (x: the n rows, or a window holding them at ``x_base``)."""
+    return _apply(a, x, "spmv", x_base=x_base)
 
 
-def residual(a: Dia, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def residual(a: Dia, x: torch.Tensor, b: torch.Tensor,
+             x_base: int = 0) -> torch.Tensor:
     """r = b − A·x in one pass."""
-    return _apply(a, x, "residual", b=b)
+    return _apply(a, x, "residual", b=b, x_base=x_base)
 
 
-def jacobi(a: Dia, x: torch.Tensor, b: torch.Tensor,
-           s: torch.Tensor) -> torch.Tensor:
-    """x' = x + s ⊙ (b − A·x) in one pass (s = ω·D⁻¹); a fresh tensor."""
-    return _apply(a, x, "jacobi", b=b, s=s)
+def jacobi(a: Dia, x: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
+           x_base: int = 0) -> torch.Tensor:
+    """x' = x + s ⊙ (b − A·x) in one pass (s = ω·D⁻¹); a fresh tensor of
+    the n rows."""
+    return _apply(a, x, "jacobi", b=b, s=s, x_base=x_base)

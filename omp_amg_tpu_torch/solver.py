@@ -15,8 +15,13 @@
                            device="cuda")          # Galerkin values from the
                                                    # device numeric phase
 
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128, 128, 128),
+                           mesh=amg.ShardMesh(4, "cuda"),
+                           transport="remote")     # z-slab distributed
+
 The device defaults to ``"cuda"``; without CUDA that raises, and nothing
-moves to the CPU on its own: a CPU run passes ``device="cpu"``.
+moves to the CPU on its own: a CPU run passes ``device="cpu"`` (with a mesh,
+``ShardMesh(d, "cpu")`` and ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -37,16 +42,30 @@ from .utils.device import resolve_device
 
 
 class AMGSolver:
-    """AMG-preconditioned CG solver with amortized setup (serial; classical
-    PMIS or, with ``grid=``, structured hierarchy; f64-certified by
-    default)."""
+    """AMG-preconditioned CG solver with amortized setup (classical PMIS or,
+    with ``grid=``, structured hierarchy; f64-certified by default).
+
+    With ``mesh`` (a :class:`~.parallel.mesh.ShardMesh` on ``device``), a
+    structured problem builds and solves distributed over z-slabs: the
+    per-shard setup (:func:`~.parallel.dist_setup.dist_structured_setup`),
+    or, when that raises ValueError, the central setup partitioned
+    (:mod:`~.parallel.partition`); the certified solve runs the sharded f64
+    refinement loop (:mod:`~.parallel.dist_ir`). ``transport`` picks the
+    halo exchange of the V-cycle and PCG: ``"ppermute"`` (plain copies) or
+    ``"remote"`` (the ``remote_halo`` kernel).
+    """
 
     def __init__(self, a, params: AMGParams = AMGParams(), *, device="cuda",
-                 grid=None, mesh=None, flavor: str = "host",
+                 grid=None, mesh=None, transport: str = "ppermute",
+                 agg_rows_per_dev: int = 2048, flavor: str = "host",
                  refreshable: bool = False):
+        self.mesh = mesh
+        self._dist = None
+        self._dist_vcycle = None
         if mesh is not None:
-            raise NotImplementedError("distributed solve (mesh=) is not "
-                                      "ported yet")
+            self._init_dist(a, params, device, grid, transport,
+                            agg_rows_per_dev, flavor, refreshable)
+            return
         if flavor != "host":
             raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
         if refreshable and grid is not None:
@@ -65,6 +84,53 @@ class AMGSolver:
                                               grid=grid)
         self._a_host = None
 
+    def _init_dist(self, a, params, device, grid, transport,
+                   agg_rows_per_dev, flavor, refreshable):
+        from .parallel.dist_setup import dist_structured_setup
+        from .parallel.partition import partition_hierarchy, place_hierarchy
+        from .parallel.slab import check_transport
+        from .sparse.formats import Dia
+
+        if refreshable:
+            raise NotImplementedError("refreshable=True with mesh= (the "
+                                      "distributed refresh) is not ported "
+                                      "yet")
+        if flavor != "host":
+            raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
+        if params.coarsening == "pmis" or (
+                params.coarsening == "auto"
+                and (grid is None or not isinstance(a, Dia))):
+            raise NotImplementedError("the distributed PMIS (classical) "
+                                      "setup is not ported yet")
+        check_supported(params)
+        check_transport(transport)
+        want = torch.device(device)
+        if want.type != self.mesh.device.type or (
+                want.index is not None
+                and want.index != self.mesh.device.index):
+            raise ValueError(f"device={str(want)!r} differs from the mesh's "
+                             f"{str(self.mesh.device)!r}")
+        self.device = self.mesh.device
+        self.a = a
+        self.params = params
+        self.last_info = {}
+        self._a_host = None
+        dh = None
+        if grid is not None and isinstance(a, Dia):
+            try:
+                dh = dist_structured_setup(
+                    a, grid, self.mesh, params, transport=transport,
+                    agg_rows_per_dev=agg_rows_per_dev)
+            except ValueError:
+                dh = None
+        if dh is None:
+            hier = amg_setup(a, params, device=self.device, grid=grid)
+            dh = place_hierarchy(
+                partition_hierarchy(hier, self.mesh.size, transport=transport,
+                                    agg_rows_per_dev=agg_rows_per_dev),
+                self.mesh)
+        self.hierarchy = dh
+
     @property
     def a_dev(self):
         """Device form of the fine operator (the hierarchy's level 0)."""
@@ -82,6 +148,12 @@ class AMGSolver:
         return self._a_host
 
     def stats(self) -> dict:
+        if self.mesh is not None:
+            sizes = [int(lv.a.n_rows) for lv in self.hierarchy.levels]
+            sizes.append(int(self.hierarchy.coarse_chol.shape[0]))
+            return {"levels": len(sizes), "sizes": sizes,
+                    "sharded": [bool(lv.sharded)
+                                for lv in self.hierarchy.levels]}
         return hierarchy_stats(self.hierarchy)
 
     def solve(self, b, tol: float = 1e-8, maxiter: int = 500,
@@ -95,6 +167,8 @@ class AMGSolver:
         """
         if isinstance(b, torch.Tensor):
             b = b.detach().cpu().numpy()
+        if self.mesh is not None:
+            return self._solve_dist(b, tol, maxiter, certify)
         if certify:
             res = solve_ir(self.a_host, np.asarray(b, np.float64), self.a_dev,
                            self.hierarchy, tol=tol, maxiter=maxiter)
@@ -117,6 +191,51 @@ class AMGSolver:
         }
         return res.x
 
+    def _solve_dist(self, b, tol, maxiter, certify):
+        from .parallel.dist import make_dist_solver
+        from .parallel.dist_ir import make_dist_ir_solver
+        from .parallel.partition import pad_vector, unpad_vector
+
+        n = b.shape[0]
+        bp = pad_vector(np.asarray(b, np.float64), self.hierarchy,
+                        self.mesh.size)
+        if certify:
+            key = ("ir", tol, int(maxiter))
+            if self._dist is None or self._dist[0] != key:
+                self._dist = (key, make_dist_ir_solver(
+                    self.mesh, self.hierarchy, tol=tol, maxiter=maxiter))
+            res = self._dist[1](self.hierarchy, bp)
+            self.last_info = {
+                "iters": sum(res.inner_iters),
+                "inner_iters": list(res.inner_iters),
+                "outer_iters": res.outer_iters,
+                "rel_residual": res.rel_residual,
+                "certified_f64": True,
+                "distributed": True,
+                "residual_histories": res.histories,
+            }
+            return unpad_vector(res.x, n)
+        key = (int(maxiter),)
+        if self._dist is None or self._dist[0] != key:
+            self._dist = (key, make_dist_solver(self.mesh, self.hierarchy,
+                                                tol=tol, maxiter=maxiter))
+        rhs = torch.from_numpy(bp.astype(np.float32))
+        res = self._dist[1](self.hierarchy, rhs, tol)
+        self.last_info = {"iters": res.iters,
+                          "rel_residual": res.rel_residual,
+                          "certified_f64": False, "distributed": True}
+        return unpad_vector(res.x, n)
+
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
         """Apply one V-cycle: z = M⁻¹ r (for external Krylov loops)."""
+        if self.mesh is not None:
+            from .parallel.dist import make_dist_vcycle
+            from .parallel.partition import pad_vector, unpad_vector
+
+            if self._dist_vcycle is None:
+                self._dist_vcycle = make_dist_vcycle(self.mesh,
+                                                     self.hierarchy)
+            n = r.shape[0]
+            rp = pad_vector(r, self.hierarchy, self.mesh.size)
+            return unpad_vector(self._dist_vcycle(self.hierarchy, rp), n)
         return vcycle(self.hierarchy, r)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel × mode × value type
-against its plain twin on the same CUDA tensors, and the GPU solves'
-iteration counts (PMIS, PMIS with the probed Galerkin values, and
-structured) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
+against its plain twin on the same CUDA tensors (``dia_spmv`` also over an
+x window, ``remote_halo`` exactly), and the GPU solves' iteration counts
+(PMIS, PMIS with the probed Galerkin values, structured, and structured on
+a 4-shard mesh) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere (the CPU runs only the twins). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -14,6 +15,7 @@ import torch
 import omp_amg_tpu_torch as amg
 from omp_amg_tpu_torch.ops import (
     const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm, probe_rap,
+    remote_halo,
 )
 from omp_amg_tpu_torch.sparse.formats import (
     ConstDia, Csr, Dia, csr_from_scipy, to_const_dia,
@@ -126,6 +128,59 @@ def test_const_stencil_kernel_chunks_large_grids(dims):
     x, b = _vec(rng, a.n_rows), _vec(rng, a.n_rows)
     _check(const_stencil.residual(a, x, b),
            const_stencil.const_stencil_plain(a, x, "residual", b=b), 0.0)
+
+
+@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi"])
+def test_dia_kernel_window_matches_twin(hier, mode):
+    """Rows [n/4, n/2) of level 0 read from a window of x at x_base."""
+    lv = hier.levels[0]
+    n = lv.a.n_rows
+    r0, r1, base = n // 4, n // 2, 3000
+    a = Dia(data=lv.a.data[:, r0:r1].contiguous(), offsets=lv.a.offsets)
+    rng = np.random.default_rng(7)
+    x = _vec(rng, (r1 - r0) + 2 * base)
+    b, s = _vec(rng, r1 - r0), lv.s[r0:r1].contiguous()
+    before = dia_spmv.launches
+    got = {"spmv": lambda: dia_spmv.spmv(a, x, x_base=base),
+           "residual": lambda: dia_spmv.residual(a, x, b, x_base=base),
+           "jacobi": lambda: dia_spmv.jacobi(a, x, b, s, x_base=base)}[mode]()
+    assert dia_spmv.launches == before + 1
+    _check(got, dia_spmv.dia_spmv_plain(a, x, mode, b, s, x_base=base), 0.0)
+
+
+@pytest.mark.parametrize("d,n,nl,nr", [(4, 131072, 16384, 16384),
+                                       (3, 1000, 100, 0), (8, 4096, 0, 512),
+                                       (64, 640, 64, 64)])
+def test_remote_halo_exact(d, n, nl, nr):
+    _need_cuda()
+    rng = np.random.default_rng(8)
+    srcs = [_vec(rng, n) for _ in range(d)]
+    before = remote_halo.launches
+    left, right = remote_halo.remote_halo(srcs, nl, nr)
+    assert remote_halo.launches == before + 1
+    want_l, want_r = remote_halo.remote_halo_plain(srcs, nl, nr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(left, want_l))
+    assert all(torch.equal(u, v) for u, v in zip(right, want_r))
+    with pytest.raises(ValueError):
+        remote_halo.remote_halo(srcs + [srcs[0]] * (65 - d), 1, 1)
+
+
+def test_sharded_solve_matches_cpu_iterations():
+    _need_cuda()
+    a = amg.poisson3d_7pt(24)
+    b = amg.default_rhs(a, seed=0)
+    infos = []
+    for device in ("cuda", "cpu"):
+        solver = amg.AMGSolver(a, amg.AMGParams(), grid=(24, 24, 24),
+                               mesh=amg.ShardMesh(4, device), device=device,
+                               transport="remote")
+        assert solver.stats()["sharded"][0]
+        solver.solve(b, tol=1e-8)
+        infos.append(solver.last_info)
+    assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
+    assert infos[0]["rel_residual"] <= 1e-8
 
 
 def _random_csr(rng, n_rows, n_cols, per_row):

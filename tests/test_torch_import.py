@@ -1,8 +1,11 @@
-"""The port stands alone: importing ``omp_amg_tpu_torch`` and running small
-CPU solves on its paths (classical PMIS with the host and with the probed
-Galerkin values, and structured with ``grid=``) loads neither JAX nor the
-reference package ``omp_amg_tpu`` (the machine with the GPU has no JAX).
-Runs in a fresh interpreter, since this test process has both loaded."""
+"""The port stands alone: importing ``omp_amg_tpu_torch`` (every module of
+it, the distributed ``parallel`` package and the ``remote_halo`` kernel
+wrapper included) and running small CPU solves on its paths (classical PMIS
+with the host and with the probed Galerkin values, structured with
+``grid=``, and structured on a 4-shard ``ShardMesh`` with the remote halo
+transport) loads neither JAX nor the reference package ``omp_amg_tpu`` (the
+machine with the GPU has no JAX). Runs in a fresh interpreter, since this
+test process has both loaded."""
 
 import json
 import subprocess
@@ -16,11 +19,18 @@ import json, sys
 import torch
 torch.set_num_threads(2)
 import omp_amg_tpu_torch as amg
+import omp_amg_tpu_torch.ops.remote_halo
+import omp_amg_tpu_torch.parallel.dist_ir
+import omp_amg_tpu_torch.parallel.dist_setup
+import omp_amg_tpu_torch.parallel.partition
 infos = []
 for n, kw in ((8, dict(params=amg.AMGParams(coarsening="pmis"))),
               (8, dict(params=amg.AMGParams(), grid=(8, 8, 8))),
               (12, dict(params=amg.AMGParams(coarsening="pmis",
-                                             rap="probe")))):
+                                             rap="probe"))),
+              (16, dict(params=amg.AMGParams(), grid=(16, 16, 16),
+                        mesh=amg.ShardMesh(4, "cpu"), transport="remote",
+                        agg_rows_per_dev=64))):
     a = amg.poisson3d_7pt(n)
     solver = amg.AMGSolver(a, kw.pop("params"), device="cpu", **kw)
     solver.solve(amg.default_rhs(a, seed=0), tol=1e-8)
@@ -40,7 +50,7 @@ def test_port_imports_no_jax_and_solves():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert ([i["structured"] for i in res["infos"]]
-            == ["Csr", "GridProlong", "Csr"])
+            == ["Csr", "GridProlong", "Csr", "SlabProlong"])
     for info in res["infos"]:
         assert info["rel_residual"] <= 1e-8
         assert info["iters"] > 0
