@@ -13,9 +13,15 @@ Phases (each raises on failure, so the exit code is non-zero):
 3. PMIS kernel checks: ``dia_spmv`` and ``csr_spmv``, every mode × value
    type on the operators of the ``poisson3d_7pt(n)`` PMIS hierarchy, against
    their plain PyTorch twins on the same CUDA tensors, both timed with CUDA
-   events;
+   events; each CSR operator's lane width V (``Csr.vec``) and, on those
+   above 50 k rows, the f32 spmv time at every V (``vsweep`` lines); each
+   ``dia_spmv`` check's path (vector or scalar) held against the launch
+   counters, and both paths timed where the operands allow both
+   (``paths`` lines);
 4. the PMIS main path: ``AMGSolver(A, AMGParams(coarsening="pmis"),
-   device="cuda").solve(b, tol=1e-8)``;
+   device="cuda").solve(b, tol=1e-8)``; the kernel launches of one
+   V-cycle, and a ``torch.profiler`` run of one warm solve (device busy
+   share, the largest kernels);
 5. iteration parity of the PMIS GPU solve against the port's plain CPU
    solve at 64³;
 5a. probe-kernel checks: the ``poisson3d_7pt(n)`` PMIS setup with
@@ -54,10 +60,12 @@ Phases (each raises on failure, so the exit code is non-zero):
    sharded GPU/CPU iteration parity at 32³, 4 shards.
 
 Each main path is driven with every launch counter set to 0 just before it
-and read just after; certified and scipy f64 residuals are checked. Every
-kernel check also times one PyTorch call that computes the same function,
-where there is one (``library_ms``: ``torch.sparse.mm``, ``F.conv3d``,
-``torch.gather``; a yardstick the port never calls), and the least time the
+and read just after (``dia_spmv`` also counts its scalar-path launches
+apart); certified and scipy f64 residuals are checked. Every kernel check
+also times one PyTorch call that computes the same function, where there is
+one (``library_ms``: ``torch.sparse.mm``, ``torch.addmm`` of a sparse CSR
+for the residual and correct modes, ``F.conv3d``, ``torch.gather``; a
+yardstick the port never calls), and the least time the
 card could take (``bound``: the bytes the function must move over the
 card's published memory rate, or its operations over its published f32
 rate, whichever is larger). The line before the last is a JSON object with
@@ -218,6 +226,93 @@ def library_spmv(csr, x):
     return lambda: torch.sparse.mm(csr, xm)
 
 
+def library_addmm(csr, x, v, alpha):
+    """One ``torch.addmm`` call: v + alpha·A·x as an (n, 1) product (the
+    residual mode with v = b and alpha = −1, correct with alpha = 1)."""
+    import torch
+
+    xm, vm = x[:, None], v[:, None]
+    return lambda: torch.addmm(vm, csr, xm, alpha=alpha)
+
+
+def sms() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def expect_dia_path(name, call, vector):
+    """One wrapper call launches ``dia_spmv`` once, on the vector path iff
+    ``vector`` (the launch counters say which)."""
+    from omp_amg_tpu_torch.ops import dia_spmv
+
+    before = dia_spmv.launches, dia_spmv.scalar_launches
+    call()
+    got = (dia_spmv.launches - before[0],
+           dia_spmv.scalar_launches - before[1])
+    if got != (1, int(not vector)):
+        raise AssertionError(f"{name}: launches {got}, expected "
+                             f"{'the vector' if vector else 'the scalar'} "
+                             "path once")
+
+
+def dia_path_times(name, a, x, x_base, flush):
+    """spmv through each path of ``dia_spmv``'s C entry point where the
+    operands allow it (the wrapper takes one by its rule); a ``paths``
+    line. These launches are comparisons, not main-path launches."""
+    import torch
+
+    from omp_amg_tpu_torch import _build
+    from omp_amg_tpu_torch.ops import dia_spmv
+
+    lib = _build.cuda_kernels()
+    out = torch.empty(a.n_rows, device="cuda")
+
+    def call(vec):
+        rc = lib.dia_spmv_launch(
+            0, int(a.data.dtype == torch.bfloat16), vec, a.n_rows,
+            len(a.offsets), a.offsets_i32, a.data.data_ptr(),
+            x.data_ptr(), x_base, x.numel(), None, None, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: dia_spmv launch failed: {rc}")
+    fits = dia_spmv.vector_path(a, x, x_base, (), 0)
+    times = {("vector" if vec else "scalar"): cuda_ms(lambda: call(vec),
+                                                      flush=flush)
+             for vec in ((1, 0) if fits else (0,))}
+    taken = dia_spmv.vector_path(a, x, x_base, (), sms())
+    print(f"paths {name} " + " ".join(f"{k}_us={v * 1e3:.2f}"
+                                       for k, v in times.items())
+          + f" taken={'vector' if taken else 'scalar'}", flush=True)
+
+
+def csr_width_times(name, a, x, flush):
+    """spmv of the f32 operator ``a`` at every lane width V through
+    ``csr_spmv``'s C entry point (the wrapper passes ``a.vec``); a
+    ``vsweep`` line. These launches are comparisons, not main-path
+    launches."""
+    import torch
+
+    from omp_amg_tpu_torch import _build
+
+    lib = _build.cuda_kernels()
+    out = torch.empty(a.n_rows, device="cuda")
+
+    def call(vec):
+        rc = lib.csr_spmv_launch(
+            0, 0, vec, a.n_rows, a.indptr.data_ptr(), a.indices.data_ptr(),
+            a.vals.data_ptr(), x.data_ptr(), None, None, None,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: csr_spmv launch failed: {rc}")
+    times = {vec: cuda_ms(lambda: call(vec), flush=flush)
+             for vec in (1, 2, 4, 8, 16, 32)}
+    print(f"vsweep {name} rows={a.n_rows} nnz={a.nnz} "
+          f"mean={a.nnz / a.n_rows:.2f} rule_V={a.vec} "
+          + " ".join(f"V{vec}_us={t * 1e3:.2f}" for vec, t in times.items()),
+          flush=True)
+
+
 def dia_checks(tag, a, s, rng, flush, dtypes):
     """All three ``dia_spmv`` modes × ``dtypes`` on the banded operator
     ``a`` (s: its Jacobi scale)."""
@@ -231,8 +326,10 @@ def dia_checks(tag, a, s, rng, flush, dtypes):
     # the same banded operator as f32 CSR, for the torch.sparse.mm yardstick
     host = dia_to_scipy(Dia(data=a.data.float().cpu().numpy(),
                             offsets=a.offsets))
-    lib = library_spmv(library_csr(*(torch.from_numpy(t).cuda() for t in (
-        host.indptr, host.indices, host.data)), host.shape), x)
+    csr = library_csr(*(torch.from_numpy(t).cuda() for t in (
+        host.indptr, host.indices, host.data)), host.shape)
+    library = {"spmv": library_spmv(csr, x),
+               "residual": library_addmm(csr, x, b, -1)}
     flops = 2 * host.nnz
     del host
     rows = []
@@ -240,6 +337,7 @@ def dia_checks(tag, a, s, rng, flush, dtypes):
         ad = Dia(data=a.data.to(dt).contiguous(), offsets=a.offsets,
                  dims=a.dims)
         vt = "bf16" if dt == torch.bfloat16 else "f32"
+        dia_path_times(f"dia_spmv:{tag}:{vt}", ad, x, 0, flush)
         vb = ad.data.numel() * ad.data.element_size() + 8 * n
         cases = {
             "spmv": (lambda: dia_spmv.spmv(ad, x),
@@ -252,10 +350,12 @@ def dia_checks(tag, a, s, rng, flush, dtypes):
                        vb + 8 * n),
         }
         for mode, (kern, plain, nbytes) in cases.items():
-            rows.append(compare(
-                f"dia_spmv:{tag}:{vt}:{mode}:n={n}:ndiag={len(a.offsets)}",
-                kern, plain, DIA_BOUND, nbytes, flush,
-                library=lib if mode == "spmv" else None, flops=flops))
+            name = f"dia_spmv:{tag}:{vt}:{mode}:n={n}:ndiag={len(a.offsets)}"
+            expect_dia_path(name, kern, dia_spmv.vector_path(
+                ad, x, 0, {"spmv": (), "residual": (b,),
+                           "jacobi": (b, s)}[mode], sms()))
+            rows.append(compare(name, kern, plain, DIA_BOUND, nbytes, flush,
+                                library=library.get(mode), flops=flops))
     return rows
 
 
@@ -281,8 +381,13 @@ def pmis_kernel_checks(hier, rng, flush):
             m, k = op.shape
             x, b, v = _vec(rng, k, dev), _vec(rng, m, dev), _vec(rng, m, dev)
             s = lv.s if opname == "A" else None
-            lib = library_spmv(library_csr(op.indptr, op.indices, op.vals,
-                                           op.shape), x)
+            csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
+            library = {"spmv": library_spmv(csr, x),
+                       "residual": library_addmm(csr, x, b, -1),
+                       "correct": library_addmm(csr, x, v, 1)}
+            if m >= 50_000:
+                csr_width_times(f"csr_spmv:L{l}-{opname}:f32:spmv", op, x,
+                                flush)
             for dt in (torch.float32, torch.bfloat16):
                 a = Csr(indptr=op.indptr, indices=op.indices,
                         vals=op.vals.to(dt).contiguous(), n_cols=op.n_cols)
@@ -307,10 +412,10 @@ def pmis_kernel_checks(hier, rng, flush):
                 for mode, (kern, plain, nbytes) in cases.items():
                     rows["csr_spmv"].append(compare(
                         f"csr_spmv:L{l}-{opname}:{tag}:{mode}:"
-                        f"rows={m}:nnz={a.nnz}", kern, plain, CSR_BOUND,
-                        nbytes, flush,
-                        library=lib if mode == "spmv" else None,
-                        flops=2 * a.nnz))
+                        f"rows={m}:nnz={a.nnz}:V={a.vec}", kern, plain,
+                        CSR_BOUND, nbytes, flush,
+                        library=library.get(mode), flops=2 * a.nnz))
+            del csr, library
     return rows
 
 
@@ -372,6 +477,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
     b = amg.default_rhs(a, seed=SEED)
     for mod in counters.values():
         mod.launches = 0
+        if hasattr(mod, "scalar_launches"):
+            mod.scalar_launches = 0
     t0 = time.perf_counter()
     solver = amg.AMGSolver(a, params, grid=grid, device="cuda", **kw)
     torch.cuda.synchronize()
@@ -381,6 +488,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    scalar = {name: mod.scalar_launches for name, mod in counters.items()
+              if hasattr(mod, "scalar_launches")}
     info = dict(solver.last_info)
     b64 = b.numpy().astype(np.float64)
     host_rel = float(np.linalg.norm(b64 - amg.dia_to_scipy(a) @ x)
@@ -390,7 +499,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
           f"setup_s={setup_s:.3f} solve_s={solve_s:.3f} "
           f"inner_iters={info['inner_iters']} outer={info['outer_iters']} "
           f"certified_rel={info['rel_residual']:.3e} "
-          f"scipy_rel={host_rel:.3e} launches={launches}", flush=True)
+          f"scipy_rel={host_rel:.3e} launches={launches} "
+          f"of_them_scalar_path={scalar}", flush=True)
     if not (x.shape == (a.n_rows,) and np.isfinite(x).all()):
         raise AssertionError(f"{label}: solution has the wrong shape or is "
                              "not finite")
@@ -412,7 +522,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
     print(f"{label} warm_solve_s={warm_solve_s:.3f} "
           f"vcycle_ms={vcycle_ms:.4f}", flush=True)
     return solver, launches, dict(setup_s=setup_s, info=info, x=x,
-                                  warm_solve_s=warm_solve_s)
+                                  warm_solve_s=warm_solve_s,
+                                  vcycle_ms=vcycle_ms, scalar=scalar)
 
 
 def expect_launches(label, launches, used):
@@ -620,7 +731,8 @@ def profile_solve(label, solver, b, top=8):
           f"busy_share={busy_ms / 1e3 / wall:.4f} device_items="
           f"{sum(e.count for e in dev)}", flush=True)
     for e in items + [e for e in dev if e not in items and any(
-            k in e.key for k in ("remote_halo_kernel", "dia_spmv_kernel"))]:
+            k in e.key for k in ("remote_halo_kernel", "dia_spmv_kernel",
+                                 "csr_spmv_kernel"))]:
         print(f"profile {label} item ms={e.self_device_time_total / 1e3:.3f}"
               f" count={e.count} us_each="
               f"{e.self_device_time_total / max(e.count, 1):.2f} "
@@ -629,7 +741,7 @@ def profile_solve(label, solver, b, top=8):
 
 def sharded_path(n, counters, flush, rng):
     """Phase 10: the z-slab distributed path (module docstring); returns
-    (launches of its main-path run, kernel rows)."""
+    (launches of its main-path run, that run, kernel rows)."""
     import torch
 
     import omp_amg_tpu_torch as amg
@@ -730,6 +842,18 @@ def sharded_path(n, counters, flush, rng):
     n_loc = blk.n_rows
     vb = blk.data.numel() * blk.data.element_size() + 4 * win.numel() \
         + 4 * n_loc
+    # the shard's band as a CSR over its x window, for the library calls
+    offs = torch.tensor(blk.offsets, device="cuda")
+    cols = base + torch.arange(n_loc, device="cuda") + offs[:, None]
+    keep = (cols >= 0) & (cols < win.numel()) & (blk.data != 0)
+    rows_ = torch.arange(n_loc, device="cuda").expand_as(cols)
+    band = torch.sparse_coo_tensor(
+        torch.stack([rows_[keep], cols[keep]]), blk.data.float()[keep],
+        (n_loc, win.numel())).coalesce().to_sparse_csr()
+    del offs, cols, keep, rows_
+    library = {"spmv": library_spmv(band, win),
+               "residual": library_addmm(band, win, b1, -1)}
+    dia_path_times(f"dia_spmv:SH-L0-shard1:window", blk, win, base, flush)
     cases = {
         "spmv": (lambda: dia_spmv.spmv(blk, win, x_base=base),
                  lambda: dia_spmv.dia_spmv_plain(blk, win, x_base=base), vb),
@@ -744,17 +868,21 @@ def sharded_path(n, counters, flush, rng):
     }
     vt = "bf16" if blk.data.dtype == torch.bfloat16 else "f32"
     for mode, (kern, plain, nbytes) in cases.items():
+        name = (f"dia_spmv:SH-L0-shard1:{vt}:window-{mode}:n={n_loc}:"
+                f"x_len={win.numel()}:ndiag={len(blk.offsets)}")
+        expect_dia_path(name, kern, dia_spmv.vector_path(
+            blk, win, base, {"spmv": (), "residual": (b1,),
+                             "jacobi": (b1, s1)}[mode], sms()))
         rows["dia_spmv"].append(compare(
-            f"dia_spmv:SH-L0-shard1:{vt}:window-{mode}:n={n_loc}:"
-            f"x_len={win.numel()}:ndiag={len(blk.offsets)}", kern, plain,
-            DIA_BOUND, nbytes, flush, flops=2 * len(blk.offsets) * n_loc))
-    del solver, dh
+            name, kern, plain, DIA_BOUND, nbytes, flush,
+            library=library.get(mode), flops=2 * len(blk.offsets) * n_loc))
+    del solver, dh, band, library
 
     # 10c: sharded GPU/CPU iteration parity
     parity(f"sharded d={SHARDS} n={SHARD_PARITY_N}^3",
            amg.poisson3d_7pt(SHARD_PARITY_N), params, (SHARD_PARITY_N,) * 3,
            shards=SHARDS, transport="remote", agg_rows_per_dev=64)
-    return launches, rows
+    return launches, run, rows
 
 
 def main() -> int:
@@ -817,10 +945,23 @@ def main() -> int:
     rows = pmis_kernel_checks(hier, rng, flush)
     del hier
 
-    # phase 4: the PMIS main path
+    # phase 4: the PMIS main path, the launches of one V-cycle, and a
+    # profile of one warm solve
     solver, pmis_launches, host_run = drive(f"pmis n={args.n}^3", a, pmis,
                                             None, counters)
     expect_launches("pmis", pmis_launches, ("dia_spmv", "csr_spmv"))
+    if pmis_launches["dia_spmv"] == host_run["scalar"]["dia_spmv"]:
+        raise AssertionError("pmis: dia_spmv never took its vector path")
+    for mod in counters.values():
+        mod.launches = 0
+    amg.vcycle(solver.hierarchy, amg.default_rhs(a, seed=SEED).to("cuda"))
+    torch.cuda.synchronize()
+    print(f"pmis n={args.n}^3 one V-cycle: levels="
+          f"{len(solver.hierarchy.levels)} launches="
+          f"{ {k: m.launches for k, m in counters.items() if m.launches} }",
+          flush=True)
+    profile_solve(f"pmis n={args.n}^3", solver,
+                  amg.default_rhs(a, seed=SEED))
     del solver
 
     # phase 5: PMIS GPU/CPU iteration parity
@@ -876,7 +1017,7 @@ def main() -> int:
         rows["dia_spmv"] += dia_checks(tag, lv.a, lv.s, rng, flush, dts)
 
     # phase 7: the 3D structured main path, then dia_spmv on its levels
-    solver, s3_launches, _ = drive(f"structured n={args.n}^3", a,
+    solver, s3_launches, s3_run = drive(f"structured n={args.n}^3", a,
                                    amg.AMGParams(), (args.n,) * 3, counters)
     expect_launches("structured 3D", s3_launches,
                     ("const_stencil", "dia_spmv"))
@@ -887,9 +1028,13 @@ def main() -> int:
     # phase 8: the 2D structured path, then dia_spmv on its 1024² and 512²
     # operators
     a2 = amg.poisson2d_5pt(N2D)
-    solver, s2_launches, _ = drive(f"structured 2D n={N2D}^2", a2,
+    solver, s2_launches, s2_run = drive(f"structured 2D n={N2D}^2", a2,
                                    amg.AMGParams(), (N2D, N2D), counters)
     expect_launches("structured 2D", s2_launches, ("dia_spmv",))
+    if s2_run["scalar"]["dia_spmv"] in (0, s2_launches["dia_spmv"]):
+        raise AssertionError("structured 2D: dia_spmv did not launch both "
+                             f"paths ({s2_run['scalar']['dia_spmv']} scalar "
+                             f"of {s2_launches['dia_spmv']})")
     for l, lv in enumerate(solver.hierarchy.levels[:2]):
         banded_checks(f"S2-L{l}-A", lv)
     del solver, a2
@@ -903,7 +1048,7 @@ def main() -> int:
         parity(label, op, amg.AMGParams(), grid, record)
 
     # phase 10: the z-slab distributed structured path on one card
-    sh_launches, sh_rows = sharded_path(args.n, counters, flush, rng)
+    sh_launches, sh_run, sh_rows = sharded_path(args.n, counters, flush, rng)
     rows["remote_halo"] = sh_rows["remote_halo"]
     rows["dia_spmv"] += sh_rows["dia_spmv"]
 
@@ -919,6 +1064,12 @@ def main() -> int:
     print("main-path launches: " + " ".join(f"{k}={v}"
                                             for k, v in paths.items()),
           flush=True)
+    runs = {"pmis": host_run, "pmis_probe": probe_run,
+            "structured_3d": s3_run, "structured_2d": s2_run,
+            "sharded_3d": sh_run}
+    print("main-path dia_spmv launches, vector / scalar path: " + " ".join(
+        f"{k}={paths[k]['dia_spmv'] - r['scalar']['dia_spmv']}/"
+        f"{r['scalar']['dia_spmv']}" for k, r in runs.items()), flush=True)
 
     def summary(name, source, replaces, main):
         main_row = next(r for r in rows[name] if r["name"].startswith(main))

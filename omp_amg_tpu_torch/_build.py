@@ -117,12 +117,13 @@ def cuda_kernels() -> ctypes.CDLL:
     if _cuda_lib is None:
         lib = ctypes.CDLL(str(cuda_library()))
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        # mode, bf16, n_rows, indptr, indices, vals, x, v, b, s, out, stream
-        lib.csr_spmv_launch.argtypes = [i32, i32, i64] + [p] * 9
-        lib.csr_spmv_launch.restype = i32
-        # mode, bf16, n, ndiag, offsets, data, x, x_base, x_len, b, s, out,
+        # mode, bf16, vec, n_rows, indptr, indices, vals, x, v, b, s, out,
         # stream
-        lib.dia_spmv_launch.argtypes = ([i32, i32, i64, i32] + [p] * 3
+        lib.csr_spmv_launch.argtypes = [i32, i32, i32, i64] + [p] * 9
+        lib.csr_spmv_launch.restype = i32
+        # mode, bf16, vec, n, ndiag, offsets (host int32), data, x, x_base,
+        # x_len, b, s, out, stream
+        lib.dia_spmv_launch.argtypes = ([i32, i32, i32, i64, i32] + [p] * 3
                                         + [i64, i64] + [p] * 4)
         lib.dia_spmv_launch.restype = i32
         # mode, nz, ny, nx, ntaps, taps (host), coeffs (host), s, x, b, p,

@@ -8,6 +8,11 @@ Modes: spmv ``A·x``, residual ``b − A·x``, correct ``v + A·x`` (the coarse
 grid correction x + P·xc), jacobi ``x + s ⊙ (b − A·x)``. Values are f32 or
 bf16; vectors and results are f32; rows sum in f32.
 
+The kernel gives each row ``a.vec`` lanes (1 to 32, a power of two: the
+host rule :attr:`Csr.vec` on the operator's mean row length), so a warp
+serves 32 / ``a.vec`` rows. The wrapper always passes that width; only a
+test forces another, through the C entry point's ``vec`` argument.
+
 The wrappers run the plain twin for CPU tensors only. For CUDA tensors they
 launch the kernel or raise; nothing falls back.
 """
@@ -86,7 +91,7 @@ def _apply(a: Csr, x: torch.Tensor, mode: str, v=None, b=None, s=None):
         return None if t is None else t.data_ptr()
 
     rc = lib.csr_spmv_launch(
-        _MODES[mode], int(a.vals.dtype == torch.bfloat16), a.n_rows,
+        _MODES[mode], int(a.vals.dtype == torch.bfloat16), a.vec, a.n_rows,
         a.indptr.data_ptr(), a.indices.data_ptr(), a.vals.data_ptr(),
         x.data_ptr(), ptr(v), ptr(b), ptr(s), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -11,6 +11,17 @@ banded product; they differ only in TPU memory layout, so one kernel,
 ``A·x``, residual ``b − A·x``, jacobi ``x + s ⊙ (b − A·x)``. Values are f32
 or bf16; vectors and results are f32.
 
+The kernel has two instantiations. The vector path computes R consecutive
+rows per thread (R = 8 for bf16 values, 4 for f32) with 16-byte loads; it
+needs ``n % R == 0``, ``x_base % R == 0`` and 16-byte-aligned operands, and
+it is taken where its n / R threads still fill the card (at least
+``VECTOR_MIN_THREADS_PER_SM`` per SM: :func:`vector_path`). The scalar path,
+a thread per row, takes everything else: on a smaller operator four or
+eight times the threads hide more latency than the wide loads save. Neither
+is a fallback for the other: the wrapper picks one from the shapes before
+the launch. ``launches`` counts every launch, ``scalar_launches`` those
+that took the scalar path.
+
 ``x`` may be a window longer than the operator's n rows: with ``x_base``,
 row i's tap reads ``x[x_base + i + off]`` where that index lies in the
 window (zero outside it). A z-slab shard of the distributed path
@@ -24,14 +35,18 @@ launch the kernel or raise; nothing falls back.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..sparse.formats import Dia
 
 _MODES = {"spmv": 0, "residual": 1, "jacobi": 2}
 MAX_DIAG = 64        # kMaxDiag in csrc/dia_spmv.cu
+VECTOR_MIN_THREADS_PER_SM = 512    # a quarter of an SM's resident threads
 
 launches = 0         # kernel launches by the wrappers (CUDA only)
+scalar_launches = 0  # of those, launches of the scalar path
 
 
 def dia_spmv_plain(a: Dia, x: torch.Tensor, mode: str = "spmv", b=None,
@@ -67,6 +82,8 @@ def _check(a: Dia, x, vecs, x_base: int):
     if len(a.offsets) > MAX_DIAG:
         raise ValueError(f"{len(a.offsets)} diagonals > kernel limit "
                          f"{MAX_DIAG}")
+    if any(abs(o) >= 2 ** 31 for o in a.offsets):
+        raise ValueError("DIA offsets must fit in int32")
     for t in vecs:
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"vectors must be float32 of shape ({n},), got "
@@ -84,6 +101,27 @@ def _check(a: Dia, x, vecs, x_base: int):
             raise ValueError("DIA kernel operands must be contiguous")
 
 
+def vector_path(a: Dia, x: torch.Tensor, x_base: int, vecs, sms: int) -> bool:
+    """True when the product takes the kernel's vector path on a card of
+    ``sms`` multiprocessors: R = 16 bytes of values per thread divides n and
+    ``x_base``; ``a.data``, ``x`` and the row vectors ``vecs`` start on
+    16-byte boundaries (the output is a fresh allocation, which always
+    does); and the n / R threads number at least
+    ``VECTOR_MIN_THREADS_PER_SM`` per SM."""
+    rows = 16 // a.data.element_size()
+    n = a.n_rows
+    if (n % rows or x_base % rows
+            or n // rows < sms * VECTOR_MIN_THREADS_PER_SM):
+        return False
+    return not (a.data.data_ptr() % 16 or x.data_ptr() % 16
+                or any(t.data_ptr() % 16 for t in vecs))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None,
            x_base: int = 0):
     vecs = tuple(v for v in (b, s) if v is not None)
@@ -99,17 +137,19 @@ def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None,
 
     lib = cuda_kernels()
     out = torch.empty(a.n_rows, dtype=torch.float32, device=x.device)
-    offsets = a.offsets_t
+    vec = vector_path(a, x, x_base, vecs, _sm_count(x.device.index))
     rc = lib.dia_spmv_launch(
-        _MODES[mode], int(a.data.dtype == torch.bfloat16), a.n_rows,
-        len(a.offsets), offsets.data_ptr(), a.data.data_ptr(), x.data_ptr(),
-        x_base, x.numel(), None if b is None else b.data_ptr(),
+        _MODES[mode], int(a.data.dtype == torch.bfloat16), int(vec),
+        a.n_rows, len(a.offsets), a.offsets_i32,
+        a.data.data_ptr(), x.data_ptr(), x_base, x.numel(),
+        None if b is None else b.data_ptr(),
         None if s is None else s.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: cudaError {rc}")
-    global launches
+    global launches, scalar_launches
     launches += 1
+    scalar_launches += not vec
     return out
 
 

@@ -22,6 +22,7 @@ padding, as in the reference.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Tuple
@@ -43,10 +44,10 @@ class Dia:
         return int(self.data.shape[1])
 
     @functools.cached_property
-    def offsets_t(self) -> torch.Tensor:
-        """The offsets as an int64 tensor beside ``data`` (kernel operand)."""
-        return torch.tensor(self.offsets, dtype=torch.int64,
-                            device=self.data.device)
+    def offsets_i32(self) -> ctypes.Array:
+        """The offsets as a host int32 ctypes array: the DIA kernel's launch
+        copies them into its parameter block."""
+        return (ctypes.c_int32 * len(self.offsets))(*self.offsets)
 
 
 @dataclass(frozen=True)
@@ -69,6 +70,19 @@ class Csr:
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.n_rows, self.n_cols)
+
+    @functools.cached_property
+    def vec(self) -> int:
+        """Lanes per row of the CSR kernel: the largest power of two at or
+        below half the mean row length ``nnz / n_rows``, from 1 to 32 (a
+        warp). Each lane then takes about two nonzeros of a row: on the H100
+        a lane per nonzero or more spends more instructions per row than the
+        loads it saves (``PERF.md``). A host rule on the sizes, so it needs
+        no device sync."""
+        v = 1
+        while v < 32 and 4 * v * max(self.n_rows, 1) <= self.nnz:
+            v *= 2
+        return v
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each kernel × mode × value type
 against its plain twin on the same CUDA tensors (``dia_spmv`` also over an
-x window, ``remote_halo`` exactly), and the GPU solves' iteration counts
+x window and on both its vector and scalar paths, ``csr_spmv`` at every
+lane width on rows of 0 to 200 nonzeros, ``remote_halo`` exactly), and the
+GPU solves' iteration counts
 (PMIS, PMIS with the probed Galerkin values, structured, and structured on
 a 4-shard mesh) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere (the CPU runs only the twins). Run on the card with
@@ -287,3 +289,142 @@ def test_gpu_solve_matches_cpu_iterations(n, params, grid):
     assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
     assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
     assert infos[0]["rel_residual"] <= 1e-8
+
+
+def _csr_launch(a, x, mode, vec, v=None, b=None, s=None):
+    """``csr_spmv``'s C entry point at a forced lane width (the wrapper
+    always passes ``a.vec``)."""
+    from omp_amg_tpu_torch._build import cuda_kernels
+
+    out = torch.empty(a.n_rows, device="cuda")
+    vecs = (None if t is None else t.data_ptr() for t in (v, b, s))
+    rc = cuda_kernels().csr_spmv_launch(
+        {"spmv": 0, "residual": 1, "correct": 2, "jacobi": 3}[mode],
+        int(a.vals.dtype == torch.bfloat16), vec, a.n_rows,
+        a.indptr.data_ptr(), a.indices.data_ptr(), a.vals.data_ptr(),
+        x.data_ptr(), *vecs, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """A square CSR operator whose rows hold 0 to 200 nonzeros, every
+    seventh row empty, and its vectors."""
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    n = 3000
+    lengths = rng.integers(0, 201, n)
+    lengths[::7] = 0
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=indptr[1:])
+    a = Csr(indptr=torch.from_numpy(indptr).cuda(),
+            indices=torch.from_numpy(rng.integers(0, n, indptr[-1])
+                                     .astype(np.int32)).cuda(),
+            vals=torch.from_numpy(rng.standard_normal(indptr[-1])
+                                  .astype(np.float32)).cuda(), n_cols=n)
+    x, v, b = (_vec(rng, n) for _ in range(3))
+    s = torch.from_numpy(rng.uniform(0.1, 0.2, n).astype(np.float32)).cuda()
+    return a, x, v, b, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "correct", "jacobi"])
+@pytest.mark.parametrize("vec", [1, 2, 4, 8, 16, 32])
+def test_csr_kernel_every_width_matches_twin(ragged, vec, mode, dtype):
+    a, x, v, b, s = ragged
+    a = Csr(a.indptr, a.indices, a.vals.to(dtype), a.n_cols)
+    kw = {"spmv": {}, "residual": {"b": b}, "correct": {"v": v},
+          "jacobi": {"b": b, "s": s}}[mode]
+    got = _csr_launch(a, x, mode, vec, **kw)
+    want = csr_spmv.csr_spmv_plain(a, x, mode, **kw)
+    _check(got, want, 1e-5)
+    # empty rows give exactly the epilogue of a zero sum
+    empty = (a.indptr[1:] == a.indptr[:-1]).nonzero()[:, 0]
+    assert torch.equal(got[empty], want[empty])
+    assert torch.equal(_csr_launch(a, x, mode, vec, **kw), got)  # same bits
+
+
+def _stencil_offsets(dims, points):
+    """Flat offsets of a 2D 9-point or 3D 7-/27-point stencil on ``dims``."""
+    strides = [int(np.prod(dims[i + 1:])) for i in range(len(dims))]
+    taps = np.stack(np.meshgrid(*[[-1, 0, 1]] * len(dims), indexing="ij"),
+                    -1).reshape(-1, len(dims))
+    if points == 7:
+        taps = taps[np.abs(taps).sum(1) <= 1]
+    return tuple(sorted(int(t @ strides) for t in taps))
+
+
+def _dia_case(name):
+    """(operator, x, x_base) of one ``dia_spmv`` path case, f32 values."""
+    rng = np.random.default_rng(10)
+    if name == "27pt":
+        dims, offs, base, extra = (24, 20, 16), _stencil_offsets(
+            (24, 20, 16), 27), 0, 0
+    elif name == "2d9pt":
+        dims, offs, base, extra = (96, 100), _stencil_offsets((96, 100), 9), \
+            0, 0
+    elif name == "n%8!=0":
+        dims, offs, base, extra = (13, 17, 19), _stencil_offsets(
+            (13, 17, 19), 7), 0, 0
+    elif name == "odd x_base":
+        dims, offs, base, extra = (16, 16, 16), _stencil_offsets(
+            (16, 16, 16), 7), 257, 520
+    else:   # 64 diagonals
+        dims, base, extra = (8192,), 0, 0
+        offs = tuple(sorted(rng.choice(np.arange(-600, 601), 64,
+                                       replace=False).tolist()))
+    n = int(np.prod(dims))
+    a = Dia(data=torch.from_numpy(rng.standard_normal((len(offs), n))
+                                  .astype(np.float32)).cuda(), offsets=offs)
+    return a, _vec(rng, n + extra), base
+
+
+DIA_CASES = ["27pt", "2d9pt", "n%8!=0", "odd x_base", "64 diagonals"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi"])
+@pytest.mark.parametrize("name", DIA_CASES)
+def test_dia_kernel_both_paths_bitwise_twin(name, mode, dtype):
+    """The wrapper's path, and each path forced through the C entry point
+    where its operands allow it: bitwise the twin."""
+    _need_cuda()
+    from omp_amg_tpu_torch._build import cuda_kernels
+
+    a, x, base = _dia_case(name)
+    a = Dia(data=a.data.to(dtype).contiguous(), offsets=a.offsets)
+    rng = np.random.default_rng(11)
+    b, s = _vec(rng, a.n_rows), _vec(rng, a.n_rows)
+    kw = {"spmv": {}, "residual": {"b": b}, "jacobi": {"b": b, "s": s}}[mode]
+    want = dia_spmv.dia_spmv_plain(a, x, mode, x_base=base, **kw)
+    before = dia_spmv.launches, dia_spmv.scalar_launches
+    got = getattr(dia_spmv, mode)(a, x, *kw.values(), x_base=base)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vector = dia_spmv.vector_path(a, x, base, tuple(kw.values()), sms)
+    assert (dia_spmv.launches - before[0],
+            dia_spmv.scalar_launches - before[1]) == (1, int(not vector))
+    _check(got, want, 0.0)
+    rows = 16 // a.data.element_size()
+    operands_fit = a.n_rows % rows == 0 and base % rows == 0
+    assert operands_fit == dia_spmv.vector_path(a, x, base,
+                                                tuple(kw.values()), 0)
+    for vec in (0, 1) if operands_fit else (0,):
+        out = torch.empty(a.n_rows, device="cuda")
+        rc = cuda_kernels().dia_spmv_launch(
+            {"spmv": 0, "residual": 1, "jacobi": 2}[mode],
+            int(dtype == torch.bfloat16), vec, a.n_rows, len(a.offsets),
+            a.offsets_i32, a.data.data_ptr(), x.data_ptr(), base,
+            x.numel(), None if "b" not in kw else b.data_ptr(),
+            None if "s" not in kw else s.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        _check(out, want, 0.0)
+    if not operands_fit:   # the vector path refuses such operands
+        out = torch.empty(a.n_rows, device="cuda")
+        assert cuda_kernels().dia_spmv_launch(
+            0, int(dtype == torch.bfloat16), 1, a.n_rows, len(a.offsets),
+            a.offsets_i32, a.data.data_ptr(), x.data_ptr(), base,
+            x.numel(), None, None, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream) != 0
