@@ -28,7 +28,8 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``rap="probe"``; per level the host Galerkin product, the colouring and
    the device numeric phase, its A_c against the host product; on levels 0
    and 1 ``panel_spmm`` (A·PV and R·U of the first colour group) and
-   ``extract_lanes`` against their twins;
+   ``extract_lanes`` against their twins; each ``panel_spmm`` operand also
+   on the warp-per-row instance (``psweep`` lines);
 5b. the probe main path: ``AMGSolver(A, AMGParams(coarsening="pmis",
    rap="probe"), device="cuda").solve(b, tol=1e-8)``, its hierarchy the one
    checked in 5a, its setup and counts beside phase 4's;
@@ -38,6 +39,7 @@ Phases (each raises on failure, so the exit code is non-zero):
    at 64³;
 6. ``const_stencil`` kernel checks: all five modes on the ``ConstDia`` of
    ``poisson3d_7pt(256)``, ``poisson3d_7pt(n)`` and ``poisson3d_27pt(n)``;
+   spmv of each at several z-chunk lengths (``zsweep`` lines);
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
    grid=(n,)*3, device="cuda").solve(b, tol=1e-8)``; then ``dia_spmv``
    checks on its Galerkin levels;
@@ -58,6 +60,10 @@ Phases (each raises on failure, so the exit code is non-zero):
    d = 8, exact against its twin, the masked windows against the plain
    exchange, and ``dia_spmv``'s x-window mode on an L0 shard; (10c) the
    sharded GPU/CPU iteration parity at 32³, 4 shards.
+
+Kernel times are CUDA-event means over 20 calls, each after an L2 flush
+that reads a 256 MB buffer (a reduction: it leaves only clean lines, where
+a write would leave dirty lines for the timed call to write back).
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after (``dia_spmv`` also counts its scalar-path launches
@@ -84,9 +90,8 @@ import numpy as np
 
 DIA_BOUND = 1e-6    # ≤ 27 f32 terms summed: only the order may differ
 CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
-CONST_BOUND = 1e-6  # same products and order as the twin: expected 0
-PROBE_BOUND = 1e-6  # panel_spmm and extract_lanes: bitwise the twin,
-                    # expected 0
+CONST_BOUND = 0.0   # same products and order as the twin: bitwise
+PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
 HALO_BOUND = 0.0    # remote_halo is a copy: exact
 SHARDS = 4          # z-slab shards of the distributed path on the one card
 SHARD_PARITY_N = 32  # the sharded GPU/CPU iteration-parity grid
@@ -125,10 +130,12 @@ def card_info() -> str:
 def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` warm calls, each
     between its own pair of CUDA events. With ``flush`` (a tensor larger
-    than the 50 MB L2), the L2 is overwritten before every timed call, and
-    a spin of about 0.1 ms (``torch.cuda._sleep``) then keeps the stream
-    busy while the host enqueues the call, so that a call whose enqueue
-    takes longer than the flush is still timed on the device alone."""
+    than the 50 MB L2), the L2 is evicted before every timed call by a
+    reduction that reads the whole buffer (it leaves only clean lines), and
+    a spin of about 0.1 ms
+    (``torch.cuda._sleep``) then keeps the stream busy while the host
+    enqueues the call, so that a call whose enqueue takes longer than the
+    flush is still timed on the device alone."""
     import torch
 
     for _ in range(warm):
@@ -137,7 +144,7 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     pairs = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush.view(torch.float32).sum()
             torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -419,9 +426,41 @@ def pmis_kernel_checks(hier, rng, flush):
     return rows
 
 
+def const_zchunk_times(name, cd, x, flush):
+    """spmv of the ``ConstDia`` ``cd`` at several z-chunk lengths through
+    ``const_stencil``'s C entry point (the wrapper passes ``plan``'s); a
+    ``zsweep`` line. These launches are comparisons, not main-path
+    launches."""
+    import torch
+
+    from omp_amg_tpu_torch import _build
+    from omp_amg_tpu_torch.ops import const_stencil as cs
+
+    lib = _build.cuda_kernels()
+    out = torch.empty(cd.n_rows, device="cuda")
+    taps, coeffs = cd.operand
+    nz, ny, nx = cd.dims
+
+    def call(zchunk):
+        rc = lib.const_stencil_launch(
+            0, nz, ny, nx, zchunk, len(coeffs), taps.ctypes.data,
+            coeffs.ctypes.data, 0.0, x.data_ptr(), None, None,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: const_stencil launch failed: {rc}")
+    _, _, rule, blocks = cs.plan(cd.dims, sms())
+    zchunks = sorted({z for z in (1, 2, 4, 8, 16, 32, 64) if z <= nz}
+                     | {rule})
+    times = {z: cuda_ms(lambda: call(z), flush=flush) for z in zchunks}
+    print(f"zsweep {name} rule_zchunk={rule} blocks={blocks} "
+          + " ".join(f"z{z}_us={t * 1e3:.2f}" for z, t in times.items()),
+          flush=True)
+
+
 def const_checks(tag, a, rng, flush):
     """All five ``const_stencil`` modes on the host operator ``a`` (a
-    masked-constant 3D stencil), on the card, against the twin."""
+    masked-constant 3D stencil), on the card, against the twin, and the
+    ``zsweep`` line of spmv."""
     import torch
 
     from omp_amg_tpu_torch.ops import const_stencil as cs
@@ -457,6 +496,7 @@ def const_checks(tag, a, rng, flush):
         "cja": (lambda: cs.correct_jacobi(cd, b, p, s),
                 lambda: plain(cd, b, "cja", p=p, s=s), 12 * n),
     }
+    const_zchunk_times(f"const_stencil:{tag}:spmv", cd, x, flush)
     return [compare(f"const_stencil:{tag}:{mode}:n={n}:taps={len(cd.taps)}",
                     kern, pl, CONST_BOUND, nbytes, flush,
                     library=conv if mode == "spmv" else None, flops=flops)
@@ -575,6 +615,40 @@ def spmm_bytes(a, c) -> int:
     return a.nnz * 8 + (a.n_rows + 1) * 8 + a.n_cols * c * 4 + a.n_rows * c * 4
 
 
+def spmm_instance_times(name, op, x, flush):
+    """U = A·X through ``panel_spmm``'s C entry point on the general
+    instance (q = 0: a warp per row, 4-byte loads, one nonzero at a time)
+    beside the wrapper's instance; a ``psweep`` line. The general instance
+    must give the kernel's bits. These launches are comparisons, not
+    main-path launches."""
+    import torch
+
+    from omp_amg_tpu_torch import _build
+    from omp_amg_tpu_torch.ops import panel_spmm as ps
+
+    lib = _build.cuda_kernels()
+    c = x.shape[1]
+    out = torch.empty((op.n_rows, c), device="cuda")
+
+    def call(q):
+        rc = lib.panel_spmm_launch(
+            op.n_rows, c, q, op.indptr.data_ptr(), op.indices.data_ptr(),
+            op.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: panel_spmm launch failed: {rc}")
+    q = ps.lane_plan(c)[0]
+    call(0)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ps.spmm_panel(op, x)):
+        raise AssertionError(f"{name}: the general instance differs from "
+                             "the kernel")
+    times = {f"q{q}": cuda_ms(lambda: call(q), flush=flush),
+             "q0": cuda_ms(lambda: call(0), flush=flush)}
+    print(f"psweep {name} " + " ".join(
+        f"{k}_us={t * 1e3:.2f}" for k, t in times.items()), flush=True)
+
+
 def probe_kernel_checks(l, probe, flush):
     """``panel_spmm`` on A·PV and R·U of the first colour group and
     ``extract_lanes`` on the whole W of level ``l``'s probe, each against
@@ -590,9 +664,11 @@ def probe_kernel_checks(l, probe, flush):
     x = pr.panel_pv(probe, c0, width)
     for opname, op in (("A·PV", probe.a), ("R·U", probe.r)):
         csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
+        name = f"panel_spmm:L{l}-{opname}:rows={op.n_rows}:nnz={op.nnz}:" \
+               f"C={width}"
+        spmm_instance_times(name, op, x, flush)
         rows["panel_spmm"].append(compare(
-            f"panel_spmm:L{l}-{opname}:rows={op.n_rows}:nnz={op.nnz}:"
-            f"C={width}", lambda: ps.spmm_panel(op, x),
+            name, lambda: ps.spmm_panel(op, x),
             lambda: ps.spmm_panel_plain(op, x), PROBE_BOUND,
             spmm_bytes(op, width), flush,
             library=lambda: torch.sparse.mm(csr, x),

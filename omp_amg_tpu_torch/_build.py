@@ -126,13 +126,13 @@ def cuda_kernels() -> ctypes.CDLL:
         lib.dia_spmv_launch.argtypes = ([i32, i32, i32, i64, i32] + [p] * 3
                                         + [i64, i64] + [p] * 4)
         lib.dia_spmv_launch.restype = i32
-        # mode, nz, ny, nx, ntaps, taps (host), coeffs (host), s, x, b, p,
-        # out, stream
-        lib.const_stencil_launch.argtypes = ([i32, i64, i64, i64, i32, p, p,
-                                              ctypes.c_float] + [p] * 5)
+        # mode, nz, ny, nx, zchunk, ntaps, taps (host), coeffs (host), s, x,
+        # b, p, out, stream
+        lib.const_stencil_launch.argtypes = ([i32, i64, i64, i64, i64, i32, p,
+                                              p, ctypes.c_float] + [p] * 5)
         lib.const_stencil_launch.restype = i32
-        # n_rows, C, indptr, indices, vals, x, u, stream
-        lib.panel_spmm_launch.argtypes = [i64, i32] + [p] * 6
+        # n_rows, C, q, indptr, indices, vals, x, u, stream
+        lib.panel_spmm_launch.argtypes = [i64, i32, i32] + [p] * 6
         lib.panel_spmm_launch.restype = i32
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4

@@ -16,6 +16,11 @@ Modes (x carries b in zjr and cja, as in the TPU kernel):
 - cja ``u + s·(b − A·u)`` with ``u = s·b + p``: coarse-grid correction p
   and post-smooth.
 
+The kernel marches along z: a block owns a tile of ``TILE_Y`` lines ×
+``TILE_X`` columns (32 threads of 4 columns across x) and a chunk of
+``zchunk`` planes; :func:`plan` chooses the chunk and :func:`block_tiles`
+mirrors the kernel's decoding of its 1-D block index.
+
 The wrappers run the plain twin for CPU tensors only. For CUDA tensors they
 launch the kernel or raise; nothing falls back. The output is always a fresh
 tensor: every mode reads neighbouring rows of its inputs.
@@ -23,14 +28,45 @@ tensor: every mode reads neighbouring rows of its inputs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..sparse.formats import ConstDia, const_masks
+from ..utils.device import sm_count
 
 _MODES = {"spmv": 0, "residual": 1, "jacobi": 2, "zjr": 3, "cja": 4}
 MAX_TAPS = 27        # kMaxTaps in csrc/const_stencil.cu
+TILE_X = 128         # kTileX: columns per block, 4 per thread
+TILE_Y = 4           # kTileY: lines per block
+BLOCKS_PER_SM = 8    # the grid plan() aims for
 
 launches = 0         # kernel launches by the wrappers (CUDA only)
+
+
+def plan(dims, sms: int) -> tuple:
+    """(tile_x, tile_y, zchunk, blocks) of the kernel's launch on ``dims =
+    (nz, ny, nx)`` and a card of ``sms`` multiprocessors: the longest
+    z-chunk (fewest halo planes) that still gives the grid about
+    ``BLOCKS_PER_SM`` blocks per SM, as evenly split as ceil allows."""
+    nz, ny, nx = dims
+    tiles = -(-nx // TILE_X) * -(-ny // TILE_Y)
+    chunks = max(1, min(nz, -(-BLOCKS_PER_SM * sms // max(tiles, 1))))
+    zchunk = max(1, -(-nz // chunks))
+    return TILE_X, TILE_Y, zchunk, tiles * -(-nz // zchunk)
+
+
+def block_tiles(dims, zchunk: int, blocks) -> tuple:
+    """(x0, y0, z0, planes) of each block in ``blocks`` (an integer array),
+    decoded from the 1-D block index as the kernel decodes it: tile x
+    fastest, then tile y, then the z-chunk. The block's threads (ty, tx)
+    write rows (z0 + step, y0 + ty, x0 + 4·tx + j) for step < planes, ty <
+    TILE_Y, tx < TILE_X / 4 and j < 4, where they lie inside the grid."""
+    nz, ny, nx = dims
+    tiles_x, tiles_y = -(-nx // TILE_X), -(-ny // TILE_Y)
+    b = np.asarray(blocks, np.int64)
+    z0 = b // (tiles_x * tiles_y) * zchunk
+    return (b % tiles_x * TILE_X, b // tiles_x % tiles_y * TILE_Y, z0,
+            np.minimum(zchunk, nz - z0))
 
 
 def const_stencil_plain(a: ConstDia, x: torch.Tensor, mode: str = "spmv",
@@ -103,8 +139,9 @@ def _apply(a: ConstDia, x: torch.Tensor, mode: str, b=None, p=None, s=None):
     out = torch.empty(a.n_rows, dtype=torch.float32, device=x.device)
     taps, coeffs = a.operand
     nz, ny, nx = a.dims
+    zchunk = plan(a.dims, sm_count(x.device.index))[2]
     rc = lib.const_stencil_launch(
-        _MODES[mode], nz, ny, nx, len(coeffs), taps.ctypes.data,
+        _MODES[mode], nz, ny, nx, zchunk, len(coeffs), taps.ctypes.data,
         coeffs.ctypes.data, 0.0 if s is None else s, x.data_ptr(),
         None if b is None else b.data_ptr(),
         None if p is None else p.data_ptr(), out.data_ptr(),

@@ -35,11 +35,10 @@ launch the kernel or raise; nothing falls back.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..sparse.formats import Dia
+from ..utils.device import sm_count
 
 _MODES = {"spmv": 0, "residual": 1, "jacobi": 2}
 MAX_DIAG = 64        # kMaxDiag in csrc/dia_spmv.cu
@@ -117,11 +116,6 @@ def vector_path(a: Dia, x: torch.Tensor, x_base: int, vecs, sms: int) -> bool:
                 or any(t.data_ptr() % 16 for t in vecs))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None,
            x_base: int = 0):
     vecs = tuple(v for v in (b, s) if v is not None)
@@ -137,7 +131,7 @@ def _apply(a: Dia, x: torch.Tensor, mode: str, b=None, s=None,
 
     lib = cuda_kernels()
     out = torch.empty(a.n_rows, dtype=torch.float32, device=x.device)
-    vec = vector_path(a, x, x_base, vecs, _sm_count(x.device.index))
+    vec = vector_path(a, x, x_base, vecs, sm_count(x.device.index))
     rc = lib.dia_spmv_launch(
         _MODES[mode], int(a.data.dtype == torch.bfloat16), int(vec),
         a.n_rows, len(a.offsets), a.offsets_i32,

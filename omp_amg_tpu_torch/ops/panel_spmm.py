@@ -7,7 +7,9 @@ Counterpart of ``omp_amg_tpu/ops/pallas_spmm.py``'s ``_spmm_kernel``
 ``spmm_panel_xla``. The kernel is ``omp_amg_tpu_torch/csrc/panel_spmm.cu``:
 U = A·X for an f32 ``Csr`` A and an f32 (n_cols, C) panel X, 1 ≤ C ≤ 128,
 each row summed in CSR order with explicit rounding, so kernel and twin give
-the same bits (up to the sign of a zero).
+the same bits (up to the sign of a zero). :func:`lane_plan` picks the
+kernel's instance from C: vector lanes of four columns where 32 divides C
+(every probe panel), else a warp per row.
 
 Not ported, because they size and schedule TPU VMEM windows: ``split_bf16``,
 ``vmem_fit``, ``roll_ring_chunks``, ``PanelPlanV2``, ``schedule_plan_v2``,
@@ -25,6 +27,7 @@ import torch
 from ..sparse.formats import Csr
 
 MAX_COLS = 128       # kMaxCols in csrc/panel_spmm.cu
+WARP = 32
 
 launches = 0         # kernel launches by the wrapper (CUDA only)
 
@@ -47,6 +50,30 @@ def spmm_panel_plain(a: Csr, x: torch.Tensor) -> torch.Tensor:
         col = torch.where(live, a.indices[pos], 0).long()
         u = u + v[:, None] * x[col]
     return u
+
+
+def lane_plan(c: int) -> tuple:
+    """(q, group, rows_per_warp) of the kernel instance for a panel of ``c``
+    columns. Where 32 divides c, q = c / 32 and a lane owns four consecutive
+    columns (one 16-byte load per nonzero): a row takes 8q lanes of a group
+    of ``group`` lanes, and ``rows_per_warp`` groups share a warp. Else
+    q = 0: a warp per row, lane l owning columns l, l + 32, l + 64, l + 96
+    below c."""
+    if c % WARP == 0:
+        q = c // WARP
+        group = {1: 8, 2: 16}.get(q, WARP)
+        return q, group, WARP // group
+    return 0, WARP, 1
+
+
+def lane_columns(c: int) -> list:
+    """The columns each lane of a row's group owns under :func:`lane_plan`
+    (the kernel's mapping, for the tests)."""
+    q, group, _ = lane_plan(c)
+    if q:
+        return [list(range(4 * g, 4 * g + 4)) if g < 8 * q else []
+                for g in range(group)]
+    return [list(range(g, c, WARP)) for g in range(group)]
 
 
 def _check(a: Csr, x: torch.Tensor):
@@ -84,9 +111,12 @@ def spmm_panel(a: Csr, x: torch.Tensor) -> torch.Tensor:
     lib = cuda_kernels()
     out = torch.empty((a.n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
+    q = lane_plan(x.shape[1])[0]
+    if x.data_ptr() % 16:    # a view off a 16-byte boundary: 4-byte loads
+        q = 0
     rc = lib.panel_spmm_launch(
-        a.n_rows, x.shape[1], a.indptr.data_ptr(), a.indices.data_ptr(),
-        a.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+        a.n_rows, x.shape[1], q, a.indptr.data_ptr(),
+        a.indices.data_ptr(), a.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"panel_spmm kernel launch failed: cudaError {rc}")

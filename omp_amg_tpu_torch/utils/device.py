@@ -1,5 +1,6 @@
 """The one place where the port's entry points turn a device argument into a
-``torch.device``.
+``torch.device``, and the card properties the kernel wrappers size their
+launches by.
 
 ``AMGSolver``, ``amg_setup`` and ``hierarchy_from_numpy`` default to
 ``device="cuda"`` and resolve it here. Without CUDA that raises: nothing
@@ -7,6 +8,8 @@ moves to the CPU on its own, and a CPU run says ``device="cpu"``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,3 +23,10 @@ def resolve_device(device) -> torch.device:
                            "available (torch.cuda.is_available() is False); "
                            "pass device='cpu' to run on the CPU")
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index`` (cached: the wrappers ask on
+    every launch)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

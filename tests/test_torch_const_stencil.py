@@ -1,8 +1,9 @@
 """Port matrix-free stencil SpMV (the plain twin of
 omp_amg_tpu_torch/csrc/const_stencil.cu) against the reference's
 ``_const_kernel`` (Pallas, interpret mode) and its XLA ``spmv_const_xla``,
-on the same seeded inputs; and the port's ``to_const_dia`` detection against
-the reference's.
+on the same seeded inputs; the port's ``to_const_dia`` detection against
+the reference's; and the kernel's launch geometry (``plan``,
+``block_tiles``): every row written exactly once.
 
 Tolerance: max|Δ| ≤ 1e-6·max|ref| against the Pallas kernel, whose fused
 epilogues may contract into an FMA; spmv and residual are bitwise equal to
@@ -147,6 +148,50 @@ def test_detection_matches_reference(case):
         np.testing.assert_array_equal(const_to_dia(got).data.numpy(), data32)
     else:
         assert got is None
+
+
+PLAN_DIMS = [(5, 11, 37), (1, 20, 36), (1, 1, 300), (24, 20, 256),
+             (128, 128, 128), (256, 256, 256), (70000, 2, 40),
+             (1, 530000, 33)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("dims", PLAN_DIMS)
+def test_plan_covers_every_row_once(dims, sms):
+    """The kernel's launch geometry (``plan`` and the block decoding the
+    kernel uses, ``block_tiles``): every row of the grid is written by
+    exactly one (block, thread, column, step). Up to 3 M rows every row is
+    counted; above, the blocks' tiles must be distinct and each axis's
+    tile ranges must partition it, which gives the same."""
+    nz, ny, nx = dims
+    tile_x, tile_y, zchunk, blocks = const_stencil.plan(dims, sms)
+    assert (tile_x, tile_y) == (const_stencil.TILE_X, const_stencil.TILE_Y)
+    assert 1 <= zchunk <= nz and blocks < 2 ** 31
+    x0, y0, z0, planes = const_stencil.block_tiles(dims, zchunk,
+                                                   np.arange(blocks))
+    assert (planes >= 1).all()
+    if dims == (128, 128, 128) and sms == 132:
+        assert blocks >= 4 * sms       # about four blocks per SM or more
+    if nz * ny * nx <= 3_000_000:
+        steps, lines, cols = np.arange(zchunk), np.arange(tile_y), \
+            np.arange(tile_x)      # column 4·tx + j of thread tx
+        z = z0[:, None, None, None] + steps[None, :, None, None]
+        y = y0[:, None, None, None] + lines[None, None, :, None]
+        x = x0[:, None, None, None] + cols[None, None, None, :]
+        live = ((steps[None, :, None, None] < planes[:, None, None, None])
+                & (y < ny) & (x < nx))
+        flat = ((z * ny + y) * nx + x)[live]
+        np.testing.assert_array_equal(
+            np.bincount(flat, minlength=nz * ny * nx), 1)
+        return
+    tiles = np.stack([x0, y0, z0], 1)
+    assert len(np.unique(tiles, axis=0)) == blocks
+    assert set(x0) == set(range(0, nx, tile_x))
+    assert set(y0) == set(range(0, ny, tile_y))
+    chunks = sorted(set(zip(z0.tolist(), planes.tolist())))
+    assert chunks[0][0] == 0 and sum(p for _, p in chunks) == nz
+    assert all(a + p == b for (a, p), (b, _) in zip(chunks, chunks[1:]))
+    assert blocks == len(set(x0)) * len(set(y0)) * len(chunks)
 
 
 def test_wrapper_checks_and_counts_no_cpu_launch():

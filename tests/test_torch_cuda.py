@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each kernel × mode × value type
 against its plain twin on the same CUDA tensors (``dia_spmv`` also over an
 x window and on both its vector and scalar paths, ``csr_spmv`` at every
-lane width on rows of 0 to 200 nonzeros, ``remote_halo`` exactly), and the
-GPU solves' iteration counts
+lane width on rows of 0 to 200 nonzeros, ``const_stencil`` on ragged,
+one-plane, one-line, interior-block and unaligned grids at any z-chunk,
+``panel_spmm`` on both of its instances, ``remote_halo``
+exactly), and the GPU solves' iteration counts
 (PMIS, PMIS with the probed Galerkin values, structured, and structured on
 a 4-shard mesh) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere (the CPU runs only the twins). Run on the card with
@@ -37,14 +39,6 @@ def _need_cuda():
 def hier():
     _need_cuda()
     return amg.amg_setup(amg.poisson3d_7pt(24), PARAMS, device="cuda")
-
-
-@pytest.fixture(scope="module")
-def stencil():
-    _need_cuda()
-    a = amg.poisson3d_27pt(64, 32, 16)
-    return to_const_dia(Dia(data=a.data.astype(np.float32),
-                            offsets=a.offsets, dims=a.dims), device="cuda")
 
 
 def _vec(rng, n):
@@ -95,41 +89,125 @@ def test_csr_kernel_matches_twin(hier, mode, dtype):
             _check(got, want, 1e-5)
 
 
-@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi", "zjr",
-                                  "cja"])
-def test_const_stencil_kernel_matches_twin(stencil, mode):
-    rng = np.random.default_rng(2)
-    x, b, p = (_vec(rng, stencil.n_rows) for _ in range(3))
-    s = float(np.float32(0.137))
+CONST_MODES = ["spmv", "residual", "jacobi", "zjr", "cja"]
+
+
+def _const_op(points, dims):
+    """A ``ConstDia`` on the card: the 7-point star or the 27-point box (the
+    kernel's two tap tables, taps in ascending offset order), or a 13-point
+    star reaching two lines and columns (its general instance); distinct
+    exact coefficients, so that a misplaced tap shows."""
+    if points == "poisson27":     # the detected operator of a generator
+        a = amg.poisson3d_27pt(*dims[::-1])
+        return to_const_dia(Dia(data=a.data.astype(np.float32),
+                                offsets=a.offsets, dims=a.dims),
+                            device="cuda")
+    nz, ny, nx = dims
+    box = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+           for dx in (-1, 0, 1)]
+    taps = box if points == 27 else [t for t in box
+                                     if sum(map(abs, t)) <= 1]
+    if points == 13:
+        taps = sorted(taps + [(0, -2, 0), (0, 2, 0), (0, 0, -2), (0, 0, 2),
+                              (0, -1, 1), (0, 1, -1)],
+                      key=lambda t: (t[0] * ny + t[1]) * nx + t[2])
+    return ConstDia(
+        coeffs=tuple((-1.0) ** k * 0.125 * (k + 1) for k in range(len(taps))),
+        offsets=tuple((dz * ny + dy) * nx + dx for dz, dy, dx in taps),
+        taps=tuple(taps), dims=dims,
+        device=torch.empty(0, device="cuda").device)
+
+
+# (stencil, dims (nz, ny, nx), vector offset): nx, ny, nz off the tile and
+# chunk sizes; one plane; one line; grids with guard-free interior blocks
+# (16-byte and, with vectors one float off a 16-byte boundary, 4-byte
+# staging); the general instance
+CONST_CASES = {
+    "poisson27-16x32x64": ("poisson27", (16, 32, 64), 0),
+    "7pt-5x11x37": (7, (5, 11, 37), 0),
+    "27pt-5x11x37": (27, (5, 11, 37), 0),
+    "7pt-plane": (7, (1, 20, 36), 0),
+    "27pt-plane": (27, (1, 20, 36), 0),
+    "7pt-line": (7, (1, 1, 300), 0),
+    "27pt-line": (27, (1, 1, 300), 0),
+    "7pt-interior": (7, (24, 20, 256), 0),
+    "27pt-interior": (27, (24, 20, 256), 0),
+    "7pt-unaligned": (7, (6, 9, 132), 1),
+    "13pt-general": (13, (6, 9, 21), 0),
+}
+
+
+def _const_inputs(case, seed=2):
+    points, dims, shift = CONST_CASES[case]
+    a = _const_op(points, dims)
+    rng = np.random.default_rng(seed)
+    x, b, p = (_vec(rng, a.n_rows + shift)[shift:] for _ in range(3))
+    return a, x, b, p, float(np.float32(0.137))
+
+
+def _const_twin(a, mode, x, b, p, s):
+    """The twin of one mode (x carries b in zjr and cja)."""
+    return const_stencil.const_stencil_plain(a, x, mode, b=b, p=p, s=s)
+
+
+@pytest.mark.parametrize("mode", CONST_MODES)
+@pytest.mark.parametrize("case", list(CONST_CASES))
+def test_const_stencil_kernel_matches_twin(case, mode):
+    _need_cuda()
+    a, x, b, p, s = _const_inputs(case)
     before = const_stencil.launches
-    got = {"spmv": lambda: const_stencil.spmv(stencil, x),
-           "residual": lambda: const_stencil.residual(stencil, x, b),
-           "jacobi": lambda: const_stencil.jacobi(stencil, x, b, s),
-           "zjr": lambda: const_stencil.presmooth_residual(stencil, x, s),
-           "cja": lambda: const_stencil.correct_jacobi(stencil, x, p, s)
+    got = {"spmv": lambda: const_stencil.spmv(a, x),
+           "residual": lambda: const_stencil.residual(a, x, b),
+           "jacobi": lambda: const_stencil.jacobi(a, x, b, s),
+           "zjr": lambda: const_stencil.presmooth_residual(a, x, s),
+           "cja": lambda: const_stencil.correct_jacobi(a, x, p, s)
            }[mode]()
     assert const_stencil.launches == before + 1
-    want = const_stencil.const_stencil_plain(stencil, x, mode, b=b, p=p, s=s)
     # explicit rounding in ascending tap order: bitwise the twin
-    _check(got, want, 0.0)
+    _check(got, _const_twin(a, mode, x, b, p, s), 0.0)
 
 
-@pytest.mark.parametrize("dims", [(70000, 2, 40), (1, 530000, 33)])
-def test_const_stencil_kernel_chunks_large_grids(dims):
-    """More than 65535 planes, or more than 65535 tiles of 4 lines: the
-    launcher splits the grid into chunks the launch grid can carry."""
+@pytest.mark.parametrize("zchunk", [1, 2, 3, 5, 64])
+@pytest.mark.parametrize("case", ["7pt-5x11x37", "27pt-interior",
+                                  "7pt-unaligned", "13pt-general"])
+def test_const_stencil_kernel_any_zchunk_matches_twin(case, zchunk):
+    """Every mode through the C entry point at a forced z-chunk length (the
+    wrapper's plan gives these small grids one plane per block): the plane
+    ring turns over many steps and ends on a ragged chunk."""
     _need_cuda()
-    nz, ny, nx = dims
-    taps = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1),
-            (0, 1, 0), (1, 0, 0))
-    offsets = tuple((dz * ny + dy) * nx + dx for dz, dy, dx in taps)
-    a = ConstDia(coeffs=(-1.0, -1.0, -1.0, 6.0, -1.0, -1.0, -1.0),
-                 offsets=offsets, taps=taps, dims=dims,
-                 device=torch.empty(0, device="cuda").device)
+    from omp_amg_tpu_torch._build import cuda_kernels
+
+    a, x, b, p, s = _const_inputs(case)
+    taps, coeffs = a.operand
+    for mode in CONST_MODES:
+        out = torch.empty(a.n_rows, device="cuda")
+        rc = cuda_kernels().const_stencil_launch(
+            CONST_MODES.index(mode), *a.dims, zchunk, len(coeffs),
+            taps.ctypes.data, coeffs.ctypes.data, s, x.data_ptr(),
+            b.data_ptr(), p.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        _check(out, _const_twin(a, mode, x, b, p, s), 0.0)
+
+
+@pytest.mark.parametrize("mode", CONST_MODES)
+@pytest.mark.parametrize("points", [7, 27])
+@pytest.mark.parametrize("dims", [(70000, 2, 40), (1, 530000, 33)])
+def test_const_stencil_kernel_chunks_large_grids(dims, points, mode):
+    """More than 65535 planes, or more than 65535 tiles of lines: the 1-D
+    launch grid carries them in one launch."""
+    _need_cuda()
+    a = _const_op(points, dims)
     rng = np.random.default_rng(3)
-    x, b = _vec(rng, a.n_rows), _vec(rng, a.n_rows)
-    _check(const_stencil.residual(a, x, b),
-           const_stencil.const_stencil_plain(a, x, "residual", b=b), 0.0)
+    x, b, p = (_vec(rng, a.n_rows) for _ in range(3))
+    s = float(np.float32(0.137))
+    got = {"spmv": lambda: const_stencil.spmv(a, x),
+           "residual": lambda: const_stencil.residual(a, x, b),
+           "jacobi": lambda: const_stencil.jacobi(a, x, b, s),
+           "zjr": lambda: const_stencil.presmooth_residual(a, x, s),
+           "cja": lambda: const_stencil.correct_jacobi(a, x, p, s)
+           }[mode]()
+    _check(got, _const_twin(a, mode, x, b, p, s), 0.0)
 
 
 @pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi"])
@@ -199,20 +277,61 @@ def _random_csr(rng, n_rows, n_cols, per_row):
     return m
 
 
-@pytest.mark.parametrize("c", [1, 16, 32, 45, 96, 128])
+def _ragged_csr(rng, n_rows, n_cols, longest):
+    """CSR rows of 0 to ``longest`` nonzeros (every seventh row empty), on
+    the card."""
+    lengths = rng.integers(0, longest + 1, n_rows)
+    lengths[::7] = 0
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(lengths, out=indptr[1:])
+    return Csr(indptr=torch.from_numpy(indptr).cuda(),
+               indices=torch.from_numpy(rng.integers(0, n_cols, indptr[-1])
+                                        .astype(np.int32)).cuda(),
+               vals=torch.from_numpy(rng.standard_normal(indptr[-1])
+                                     .astype(np.float32)).cuda(),
+               n_cols=n_cols)
+
+
+@pytest.mark.parametrize("c", [1, 16, 32, 45, 64, 96, 128])
 def test_panel_spmm_matches_twin_on_random_operators(c):
+    """Empty rows, rows longer than one 32-pair index batch and rows of
+    every length modulo the unroll (0 to 200 nonzeros)."""
     _need_cuda()
     rng = np.random.default_rng(4)
-    for n_rows, n_cols, per_row in ((1000, 700, 9), (300, 5000, 60)):
-        a = csr_from_scipy(_random_csr(rng, n_rows, n_cols, per_row),
-                           device="cuda")
-        x = torch.from_numpy(rng.standard_normal((n_cols, c))
+    ops = [csr_from_scipy(_random_csr(rng, n_rows, n_cols, per_row),
+                          device="cuda")
+           for n_rows, n_cols, per_row in ((1000, 700, 9), (300, 5000, 60))]
+    ops.append(_ragged_csr(rng, 2000, 3000, 200))
+    for a in ops:
+        x = torch.from_numpy(rng.standard_normal((a.n_cols, c))
                              .astype(np.float32)).cuda()
         before = panel_spmm.launches
         got = panel_spmm.spmm_panel(a, x)
         assert panel_spmm.launches == before + 1
         # explicit rounding in CSR order: bitwise the twin
         _check(got, panel_spmm.spmm_panel_plain(a, x), 0.0)
+
+
+@pytest.mark.parametrize("c", [32, 64, 96, 128])
+def test_panel_spmm_every_instance_matches_twin(c):
+    """The vector instance (q = C / 32) and the warp-per-row instance
+    (q = 0) through the C entry point: bitwise the twin."""
+    _need_cuda()
+    from omp_amg_tpu_torch._build import cuda_kernels
+
+    rng = np.random.default_rng(5)
+    a = _ragged_csr(rng, 2000, 3000, 200)
+    x = torch.from_numpy(rng.standard_normal((a.n_cols, c))
+                         .astype(np.float32)).cuda()
+    want = panel_spmm.spmm_panel_plain(a, x)
+    for q in (panel_spmm.lane_plan(c)[0], 0):
+        out = torch.empty((a.n_rows, c), device="cuda")
+        rc = cuda_kernels().panel_spmm_launch(
+            a.n_rows, c, q, a.indptr.data_ptr(), a.indices.data_ptr(),
+            a.vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        _check(out, want, 0.0)
 
 
 @pytest.fixture(scope="module")

@@ -191,6 +191,28 @@ def test_spmm_panel_wrapper_checks():
                            device="cpu"), torch.zeros(5, 8))
 
 
+def test_lane_plan_covers_every_column_once():
+    """For every panel width C in 1..128, the kernel's lane mapping
+    (``lane_plan``, ``lane_columns``): a row's group of lanes owns each of
+    the C columns exactly once, the groups fill a warp, and the vector
+    instance (q > 0) serves exactly the widths that 32 divides, each lane
+    with four consecutive aligned columns (one 16-byte load)."""
+    for c in range(1, panel_spmm.MAX_COLS + 1):
+        q, group, rows_per_warp = panel_spmm.lane_plan(c)
+        assert group * rows_per_warp == 32
+        cols = panel_spmm.lane_columns(c)
+        assert len(cols) == group
+        assert sorted(k for lane in cols for k in lane) == list(range(c)), c
+        assert (q > 0) == (c % 32 == 0)
+        if q:
+            assert c == 32 * q and 8 * q <= group
+            for lane in filter(None, cols):
+                assert lane[0] % 4 == 0
+                assert lane == list(range(lane[0], lane[0] + 4))
+        else:
+            assert rows_per_warp == 1 and max(map(len, cols)) <= 4
+
+
 def test_extract_lanes_matches_reference_kernel():
     rng = np.random.default_rng(9)
     w = rng.standard_normal((256, 128)).astype(np.float32)

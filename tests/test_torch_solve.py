@@ -3,9 +3,11 @@
 - one V-cycle of the port on a hierarchy carried over from the reference
   (``hierarchy_from_numpy``) against the reference's ``vcycle`` on the same
   b: max|Δ| ≤ 1e-5·max|ref| (f32 sums in another order);
-- the certified ``AMGSolver.solve(b, tol=1e-8)`` at 16³ and 24³: the same
-  inner iteration counts per outer pass and the same outer count as the
-  reference, both with a true f64 relative residual ≤ 1e-8.
+- the certified ``AMGSolver.solve(b, tol=1e-8)`` at 16³ and 24³, and on
+  ``bench.py``'s PMIS configs at CPU sizes (2d5pt 32², aniso9pt 32² at
+  θ = 0.5, 27pt 12³): the same inner iteration counts per outer pass and
+  the same outer count as the reference, with a true f64 relative residual
+  ≤ 1e-8.
 """
 
 import jax
@@ -82,6 +84,44 @@ def test_certified_solve_matches_reference(n):
     assert info["inner_iters"] == res_j.inner_iters
     assert info["rel_residual"] <= 1e-8
     assert solver_j.last_info["rel_residual"] <= 1e-8
+    true_rel = (np.linalg.norm(b - port.dia_to_scipy(a) @ x)
+                / np.linalg.norm(b))
+    assert true_rel <= 1e-8
+
+
+# bench.py's pmis_configs (bench.py:383-475) at CPU sizes: the generator, its
+# size, and the PMIS parameters bench.py gives it (θ = 0.5 for the
+# anisotropic 9-point operator)
+BENCH_CONFIGS = {
+    "2d5pt_32": ("poisson2d_5pt", 32, {}),
+    "aniso9pt_32_theta0.5": ("aniso2d_9pt", 32, {"theta": 0.5}),
+    "27pt_12": ("poisson3d_27pt", 12, {}),
+}
+
+
+@pytest.mark.parametrize("config", list(BENCH_CONFIGS))
+def test_certified_solve_matches_reference_on_bench_configs(config):
+    """The certified PMIS solve of bench.py's configs: the reference's inner
+    counts per outer pass and outer count, true f64 residual ≤ 1e-8."""
+    gen, n, kw = BENCH_CONFIGS[config]
+    a_j = getattr(ref, gen)(n, backend="numpy")
+    b = np.asarray(ref.default_rhs(getattr(ref, gen)(n), seed=0), np.float64)
+    solver_j = ref.AMGSolver(a_j, RefParams(coarsening="pmis", **kw))
+    solver_j.solve(b, tol=1e-8)
+    res_j = ref_solve_ir(solver_j.a_host, b, solver_j.a, solver_j.hierarchy,
+                         tol=1e-8, maxiter=500)
+
+    a = getattr(port, gen)(n)
+    b_t = port.default_rhs(a, seed=0)
+    np.testing.assert_array_equal(b_t.numpy().astype(np.float64), b)
+    solver = port.AMGSolver(a, port.AMGParams(coarsening="pmis", **kw),
+                            device="cpu")
+    x = solver.solve(b_t, tol=1e-8)
+    info = solver.last_info
+
+    assert info["inner_iters"] == res_j.inner_iters
+    assert info["outer_iters"] == solver_j.last_info["outer_iters"]
+    assert info["rel_residual"] <= 1e-8
     true_rel = (np.linalg.norm(b - port.dia_to_scipy(a) @ x)
                 / np.linalg.norm(b))
     assert true_rel <= 1e-8
