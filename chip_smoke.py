@@ -59,7 +59,23 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``remote_halo`` on the sharded levels L0, L1, L2 at d = 4 and L0 at
    d = 8, exact against its twin, the masked windows against the plain
    exchange, and ``dia_spmv``'s x-window mode on an L0 shard; (10c) the
-   sharded GPU/CPU iteration parity at 32³, 4 shards.
+   sharded GPU/CPU iteration parity at 32³, 4 shards;
+11. the options: (11a) ``bench.py``'s ``3d27pt_128_cheby`` (27-point 128³,
+   ``AMGParams(smoother="chebyshev")``) structured and PMIS, its counts
+   beside the TPU records, then ``dia_spmv`` and ``csr_spmv`` checks on its
+   PMIS levels 0 and 1; (11c) on the 7-point n³ PMIS and structured paths
+   the device certified loop (``residual="device"``, the default on the
+   card) against the host loop: equal counts, ``device_result=True``
+   bitwise the host x, warm times and profiles; (11b) there too the W and F
+   cycles and the pipelined PCG on that setup (launches of one cycle
+   application of each cycle type; the pipelined count standard's or one
+   more; profiles of both PCGs, with their device-to-host copies), and
+   l1-Jacobi and the ``inv`` coarse solve on their own setups; (11d)
+   Chebyshev and the pipelined PCG on the 4-shard path against 1 shard;
+   (11e) the GPU/CPU iteration parity of all of them at 32³.
+
+Phases 4-10 call ``solve(b, tol=1e-8)``, whose ``residual="auto"`` forms
+the certified residual on the card for a ``Dia`` operator.
 
 Kernel times are CUDA-event means over 20 calls, each after an L2 flush
 that reads a 256 MB buffer (a reduction: it leaves only clean lines, where
@@ -99,6 +115,12 @@ RAP_BOUND = 3e-6    # probed A_c against the host product (f32 sums)
 SEED = 0            # right-hand side and kernel-check inputs
 PARITY_N = 64       # the PMIS GPU/CPU iteration-parity grid
 RAP_BENCH_N = 96    # bench.py's BENCH_PMIS_N: its numeric-phase measurement
+# bench.py's fourth config, 3d27pt_128_cheby, and its TPU records
+# (bench_details.json "configs" and "pmis_configs": inner iterations summed
+# over the outer passes, outer passes)
+CHEBY_N = 128
+TPU_RECORD_CHEBY = {"structured": (10, 2), "pmis": (10, 2)}
+VARIANT_PARITY_N = 32   # the options' GPU/CPU iteration-parity grid
 # published peaks (NVIDIA data sheets): memory bytes/s and f32 FLOP/s
 # outside the tensor cores, by card name; the first match wins
 PEAKS = (("H200", 4.8e12, 67e12, "H200 SXM"),
@@ -503,17 +525,20 @@ def const_checks(tag, a, rng, flush):
             for mode, (kern, pl, nbytes) in cases.items()]
 
 
-def drive(label, a, params, grid, counters, vcycle=None, **kw):
+def drive(label, a, params, grid, counters, vcycle=None, solve_kw=None,
+          **kw):
     """Drive one main path through the user's entry points: counters set to
     0 just before, read just after; certified and scipy f64 residuals
-    checked; then a warm solve and the V-cycle time (``vcycle(solver, r)``,
+    checked; then a warm solve and the cycle time (``vcycle(solver, r)``,
     default the single-device ``amg.vcycle``). ``kw`` goes to
-    ``AMGSolver`` (a mesh, its transport). Returns (solver, launches, run):
-    run holds setup_s, warm_solve_s, x and the solve's ``last_info``."""
+    ``AMGSolver`` (a mesh, its transport), ``solve_kw`` to both solves (the
+    PCG variant). Returns (solver, launches, run): run holds setup_s,
+    warm_solve_s, x and the solve's ``last_info``."""
     import torch
 
     import omp_amg_tpu_torch as amg
 
+    solve_kw = solve_kw or {}
     b = amg.default_rhs(a, seed=SEED)
     for mod in counters.values():
         mod.launches = 0
@@ -524,7 +549,7 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    x = solver.solve(b, tol=1e-8)
+    x = solver.solve(b, tol=1e-8, **solve_kw)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
@@ -539,8 +564,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
           f"setup_s={setup_s:.3f} solve_s={solve_s:.3f} "
           f"inner_iters={info['inner_iters']} outer={info['outer_iters']} "
           f"certified_rel={info['rel_residual']:.3e} "
-          f"scipy_rel={host_rel:.3e} launches={launches} "
-          f"of_them_scalar_path={scalar}", flush=True)
+          f"scipy_rel={host_rel:.3e} residual={info['residual']} "
+          f"launches={launches} of_them_scalar_path={scalar}", flush=True)
     if not (x.shape == (a.n_rows,) and np.isfinite(x).all()):
         raise AssertionError(f"{label}: solution has the wrong shape or is "
                              "not finite")
@@ -551,7 +576,7 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
         raise AssertionError(f"{label}: scipy f64 cross-check "
                              f"{host_rel:.3e} > 2e-8")
     t0 = time.perf_counter()
-    solver.solve(b, tol=1e-8)
+    solver.solve(b, tol=1e-8, **solve_kw)
     torch.cuda.synchronize()
     warm_solve_s = time.perf_counter() - t0
     r = b.to("cuda")
@@ -563,7 +588,8 @@ def drive(label, a, params, grid, counters, vcycle=None, **kw):
           f"vcycle_ms={vcycle_ms:.4f}", flush=True)
     return solver, launches, dict(setup_s=setup_s, info=info, x=x,
                                   warm_solve_s=warm_solve_s,
-                                  vcycle_ms=vcycle_ms, scalar=scalar)
+                                  vcycle_ms=vcycle_ms, scalar=scalar,
+                                  scipy_rel=host_rel)
 
 
 def expect_launches(label, launches, used):
@@ -574,11 +600,13 @@ def expect_launches(label, launches, used):
                                  f"expected {'>0' if name in used else 0}")
 
 
-def parity(label, a, params, grid, record=None, shards=None, **kw):
+def parity(label, a, params, grid, record=None, shards=None, solve_kw=None,
+           **kw):
     """The GPU solve's inner and outer counts against the port's own CPU
     solve; a difference prints both residual histories and fails. With
     ``shards``, both run on a ``ShardMesh`` of that many shards (``kw``:
-    more ``AMGSolver`` arguments)."""
+    more ``AMGSolver`` arguments; ``solve_kw``: ``solve`` arguments, for
+    both)."""
     import omp_amg_tpu_torch as amg
 
     b = amg.default_rhs(a, seed=SEED)
@@ -587,16 +615,17 @@ def parity(label, a, params, grid, record=None, shards=None, **kw):
         if shards is not None:
             kw["mesh"] = amg.ShardMesh(shards, dev)
         s = amg.AMGSolver(a, params, grid=grid, device=dev, **kw)
-        s.solve(b, tol=1e-8)
+        s.solve(b, tol=1e-8, **(solve_kw or {}))
         runs[dev] = s.last_info
     g, c = runs["cuda"], runs["cpu"]
     rec = "" if record is None else (
         f" | TPU record (bench_details.json) inner={record[0]} "
         f"outer={record[1]}")
     print(f"parity {label} gpu inner={g['inner_iters']} "
-          f"outer={g['outer_iters']} rel={g['rel_residual']:.3e} | "
-          f"cpu inner={c['inner_iters']} outer={c['outer_iters']} "
-          f"rel={c['rel_residual']:.3e}{rec}", flush=True)
+          f"outer={g['outer_iters']} rel={g['rel_residual']:.3e} "
+          f"residual={g['residual']} | cpu inner={c['inner_iters']} "
+          f"outer={c['outer_iters']} rel={c['rel_residual']:.3e} "
+          f"residual={c['residual']}{rec}", flush=True)
     if (g["inner_iters"], g["outer_iters"]) != (c["inner_iters"],
                                                 c["outer_iters"]):
         for dev, run in runs.items():
@@ -782,11 +811,12 @@ def rap_bench(n):
           f"host_gnnz_per_s={a0.nnz / host_s / 1e9:.4f}", flush=True)
 
 
-def profile_solve(label, solver, b, top=8):
-    """One warm certified solve under ``torch.profiler``: wall seconds,
-    device busy milliseconds (the profiler's "Self CUDA time total": the
-    self device time of the device events) and their share of the wall,
-    and the ``top`` device items by time."""
+def profile_solve(label, solver, b, top=8, **solve_kw):
+    """One warm certified solve (``solve_kw``: more ``solve`` arguments)
+    under ``torch.profiler``: wall seconds, device busy milliseconds (the
+    profiler's "Self CUDA time total": the self device time of the device
+    events) and their share of the wall, and the ``top`` device items by
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -795,17 +825,21 @@ def profile_solve(label, solver, b, top=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(b, tol=1e-8)
+        solver.solve(b, tol=1e-8, **solve_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in dev
+                  if "Memcpy" in e.key) / 1e3
     items = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    dtoh = sum(e.count for e in dev if "DtoH" in e.key)
     print(f"profile {label} wall_s={wall:.4f} device_busy_ms={busy_ms:.3f} "
-          f"busy_share={busy_ms / 1e3 / wall:.4f} device_items="
-          f"{sum(e.count for e in dev)}", flush=True)
+          f"busy_share={busy_ms / 1e3 / wall:.4f} memcpy_ms={copy_ms:.3f} "
+          f"dtoh_copies={dtoh} device_items={sum(e.count for e in dev)}",
+          flush=True)
     for e in items + [e for e in dev if e not in items and any(
             k in e.key for k in ("remote_halo_kernel", "dia_spmv_kernel",
                                  "csr_spmv_kernel"))]:
@@ -959,6 +993,330 @@ def sharded_path(n, counters, flush, rng):
            amg.poisson3d_7pt(SHARD_PARITY_N), params, (SHARD_PARITY_N,) * 3,
            shards=SHARDS, transport="remote", agg_rows_per_dev=64)
     return launches, run, rows
+
+
+def histories(tag, info):
+    """Print a solve's PCG residual history per outer pass."""
+    for k, hist in enumerate(info["residual_histories"]):
+        print(f"history {tag} outer={k}: "
+              + " ".join(f"{h:.6e}" for h in hist), flush=True)
+
+
+def check_certified(label, info, scipy_rel):
+    """Phase 11's residual contract: certified and scipy f64 ≤ 1e-8."""
+    if info["rel_residual"] > 1e-8 or scipy_rel > 1e-8:
+        raise AssertionError(f"{label}: certified {info['rel_residual']:.3e}"
+                             f", scipy {scipy_rel:.3e}: above 1e-8")
+
+
+def pmis27_kernel_checks(hier, rng, flush):
+    """``dia_spmv`` on the 27-diagonal fine level (its bf16 planes) and
+    ``csr_spmv`` on level 1's A, P and R (f32) of the PMIS 27-point
+    hierarchy, against their twins."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import csr_spmv
+
+    lv0, lv1 = hier.levels[0], hier.levels[1]
+    rows = {"dia_spmv": dia_checks("P27-L0-A", lv0.a, lv0.s, rng, flush,
+                                   (lv0.a.data.dtype,)),
+            "csr_spmv": []}
+    dev = hier.device
+    for opname, op in (("A", lv1.a), ("P", lv1.p), ("R", lv1.r)):
+        m, k = op.shape
+        x, b, v = _vec(rng, k, dev), _vec(rng, m, dev), _vec(rng, m, dev)
+        csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
+        cb = (op.nnz * (4 + op.vals.element_size()) + 8 * (m + 1) + 4 * k
+              + 4 * m)
+        cases = {"spmv": (lambda: csr_spmv.spmv(op, x),
+                          lambda: csr_spmv.csr_spmv_plain(op, x), cb,
+                          library_spmv(csr, x))}
+        if opname == "A":
+            cases["residual"] = (
+                lambda: csr_spmv.residual(op, x, b),
+                lambda: csr_spmv.csr_spmv_plain(op, x, "residual", b=b),
+                cb + 4 * m, library_addmm(csr, x, b, -1))
+            cases["jacobi"] = (
+                lambda: csr_spmv.jacobi(op, x, b, lv1.s),
+                lambda: csr_spmv.csr_spmv_plain(op, x, "jacobi", b=b,
+                                                s=lv1.s), cb + 8 * m, None)
+        if opname == "P":
+            cases["correct"] = (
+                lambda: csr_spmv.correct(op, x, v),
+                lambda: csr_spmv.csr_spmv_plain(op, x, "correct", v=v),
+                cb + 4 * m, library_addmm(csr, x, v, 1))
+        vt = "bf16" if op.vals.dtype == torch.bfloat16 else "f32"
+        for mode, (kern, plain, nbytes, lib) in cases.items():
+            rows["csr_spmv"].append(compare(
+                f"csr_spmv:P27-L1-{opname}:{vt}:{mode}:rows={m}:"
+                f"nnz={op.nnz}:V={op.vec}", kern, plain, CSR_BOUND, nbytes,
+                flush, library=lib, flops=2 * op.nnz))
+        del csr
+    return rows
+
+
+def cheby_configs(counters, rng, flush):
+    """Phase 11a: bench.py's 3d27pt_128_cheby in both pipelines, its counts
+    beside the TPU records. Returns ({path: launches}, kernel rows)."""
+    import omp_amg_tpu_torch as amg
+
+    a = amg.poisson3d_27pt(CHEBY_N)
+    grid = (CHEBY_N,) * 3
+    paths, rows = {}, {}
+    for pipeline, params, g, used in (
+            ("structured", amg.AMGParams(smoother="chebyshev"), grid,
+             ("const_stencil", "dia_spmv")),
+            ("pmis", amg.AMGParams(coarsening="pmis", smoother="chebyshev"),
+             None, ("dia_spmv", "csr_spmv"))):
+        label = f"cheby {pipeline} 27pt n={CHEBY_N}^3"
+        solver, launches, run = drive(label, a, params, g, counters)
+        expect_launches(label, launches, used)
+        info = run["info"]
+        check_certified(label, info, run["scipy_rel"])
+        rec = TPU_RECORD_CHEBY[pipeline]
+        got = (sum(info["inner_iters"]), info["outer_iters"])
+        print(f"{label} inner={got[0]} ({info['inner_iters']}) "
+              f"outer={got[1]} | TPU record (bench_details.json) "
+              f"inner={rec[0]} outer={rec[1]}"
+              f"{'' if got == rec else ' DIFFERS'}", flush=True)
+        if got != rec:
+            histories(label, info)
+        if pipeline == "pmis":
+            rows = pmis27_kernel_checks(solver.hierarchy, rng, flush)
+        paths[f"cheby_{pipeline}"] = launches
+        del solver
+    return paths, rows
+
+
+def timed_solve(solver, b, **kw):
+    """One cold and one warm certified solve; (x, info, warm seconds)."""
+    import torch
+
+    solver.solve(b, tol=1e-8, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = solver.solve(b, tol=1e-8, **kw)
+    torch.cuda.synchronize()
+    return x, dict(solver.last_info), time.perf_counter() - t0
+
+
+def option_paths(n, counters):
+    """Phases 11b and 11c on the 7-point n³ PMIS and structured main paths:
+    the device certified loop against the host loop, then each remaining
+    option. Returns {path: launches}."""
+    import dataclasses
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+
+    a = amg.poisson3d_7pt(n)
+    b = amg.default_rhs(a, seed=SEED)
+    b_card = b.to("cuda")
+    b64 = b.numpy().astype(np.float64)
+    a_sp = amg.dia_to_scipy(a)
+    paths = {}
+
+    def scipy_rel(x):
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        return float(np.linalg.norm(b64 - a_sp @ x) / np.linalg.norm(b64))
+
+    def zero():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read():
+        return {name: mod.launches for name, mod in counters.items()}
+
+    for pipeline, base, grid in (("pmis", amg.AMGParams(coarsening="pmis"),
+                                  None),
+                                 ("structured", amg.AMGParams(), (n,) * 3)):
+        tag = f"{pipeline} n={n}^3"
+        t0 = time.perf_counter()
+        solver = amg.AMGSolver(a, base, grid=grid, device="cuda")
+        torch.cuda.synchronize()
+        print(f"variants {tag} base setup_s={time.perf_counter() - t0:.3f}",
+              flush=True)
+
+        # 11c: the device certified loop against the host loop
+        x_h, host, host_s = timed_solve(solver, b, residual="host")
+        x_d, dev, dev_s = timed_solve(solver, b, residual="device")
+        xt, _, card_s = timed_solve(solver, b_card, residual="device",
+                                    device_result=True)
+        rels = {mode: scipy_rel(x) for mode, x in (("host", x_h),
+                                                   ("device", x_d))}
+        print(f"device loop {tag}: host inner={host['inner_iters']} "
+              f"outer={host['outer_iters']} certified="
+              f"{host['rel_residual']:.3e} scipy={rels['host']:.3e} "
+              f"warm_solve_s={host_s:.4f} | device inner="
+              f"{dev['inner_iters']} outer={dev['outer_iters']} certified="
+              f"{dev['rel_residual']:.3e} scipy={rels['device']:.3e} "
+              f"warm_solve_s={dev_s:.4f} | device, b on the card, "
+              f"device_result warm_solve_s={card_s:.4f}", flush=True)
+        if (dev["inner_iters"], dev["outer_iters"]) != (host["inner_iters"],
+                                                        host["outer_iters"]):
+            histories(f"{tag} host", host)
+            histories(f"{tag} device", dev)
+            raise AssertionError(f"{tag}: the device loop's counts differ "
+                                 "from the host loop's")
+        check_certified(f"{tag} device loop", dev, rels["device"])
+        if not (rels["device"] <= 2 * dev["rel_residual"]
+                and dev["rel_residual"] <= 2 * rels["device"]):
+            raise AssertionError(f"{tag}: the device loop's residual is not "
+                                 "within 2x of scipy's")
+        if not (xt.is_cuda and xt.dtype == torch.float64
+                and np.array_equal(xt.cpu().numpy(), x_d)):
+            raise AssertionError(f"{tag}: device_result differs from the "
+                                 "host x of the device loop")
+        print(f"device loop {tag}: device_result is a CUDA float64 tensor, "
+              "bitwise the host x", flush=True)
+        if pipeline == "pmis":
+            profile_solve(f"{tag} host loop", solver, b, residual="host")
+            profile_solve(f"{tag} device loop", solver, b, residual="device")
+        profile_solve(f"{tag} device loop, b on the card, device_result",
+                      solver, b_card, residual="device", device_result=True)
+
+        # 11b: the options; W, F and the pipelined PCG reuse the setup
+        hier0 = solver.hierarchy
+        per_cycle = {}
+        for cycle in ("v", "w", "f"):
+            solver.hierarchy = dataclasses.replace(
+                hier0, params=dataclasses.replace(base, cycle=cycle))
+            zero()
+            amg.vcycle(solver.hierarchy, b_card)
+            torch.cuda.synchronize()
+            per_cycle[cycle] = {k: v for k, v in read().items() if v}
+        print(f"variants {tag} launches per preconditioner application: "
+              + " ".join(f"{c.upper()}={v}" for c, v in per_cycle.items()),
+              flush=True)
+        options = [("w", None, {"cycle": "w"}, {}),
+                   ("f", None, {"cycle": "f"}, {}),
+                   ("pipelined", None, {}, {"variant": "pipelined"}),
+                   ("l1jacobi", {"smoother": "l1jacobi"}, {}, {}),
+                   ("inv", {"coarse_solver": "inv", "coarse_size": 400}, {},
+                    {})]
+        for name, setup_kw, cycle_kw, solve_kw in options:
+            label = f"variants {tag} {name}"
+            setup_s = 0.0
+            if setup_kw is None:
+                opt = solver
+                opt.hierarchy = dataclasses.replace(
+                    hier0, params=dataclasses.replace(base, **cycle_kw))
+            else:
+                t0 = time.perf_counter()
+                opt = amg.AMGSolver(a, dataclasses.replace(base, **setup_kw),
+                                    grid=grid, device="cuda")
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+            zero()
+            opt.solve(b, tol=1e-8, **solve_kw)
+            torch.cuda.synchronize()
+            launches = read()
+            info = dict(opt.last_info)
+            t0 = time.perf_counter()
+            x = opt.solve(b, tol=1e-8, **solve_kw)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            rel = scipy_rel(x)
+            print(f"{label} setup_s={setup_s:.3f} inner={info['inner_iters']}"
+                  f" outer={info['outer_iters']} certified="
+                  f"{info['rel_residual']:.3e} scipy={rel:.3e} "
+                  f"residual={info['residual']} warm_solve_s={warm_s:.4f} "
+                  f"launches={ {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+            check_certified(label, info, rel)
+            if name == "pipelined":
+                extra = sum(info["inner_iters"]) - sum(dev["inner_iters"])
+                if not 0 <= extra <= 1:
+                    histories(f"{tag} standard", dev)
+                    histories(f"{tag} pipelined", info)
+                    raise AssertionError(f"{label}: {extra} iterations more "
+                                         "than standard PCG (0 or 1 "
+                                         "expected)")
+                profile_solve(f"{tag} standard", solver, b)
+                profile_solve(f"{tag} pipelined", solver, b,
+                              variant="pipelined")
+            paths[f"{pipeline}_{name}"] = launches
+            if opt is not solver:
+                del opt
+        del solver, hier0
+    return paths
+
+
+def sharded_variants(n, counters):
+    """Phase 11d: Chebyshev and the pipelined PCG on the z-slab path, 4
+    shards against 1 (partition invariance). Returns {path: launches}."""
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.parallel.dist import dist_vcycle
+
+    a = amg.poisson3d_7pt(n)
+    grid = (n,) * 3
+
+    def vcycle(solver, r):
+        return dist_vcycle(solver.hierarchy, solver.mesh.shard(r))
+
+    paths = {}
+    for name, params, solve_kw in (
+            ("chebyshev", amg.AMGParams(smoother="chebyshev"), {}),
+            ("pipelined", amg.AMGParams(), {"variant": "pipelined"})):
+        infos = {}
+        for d in (SHARDS, 1):
+            label = f"sharded d={d} remote {name} n={n}^3"
+            solver, launches, run = drive(
+                label, a, params, grid, counters, vcycle=vcycle,
+                solve_kw=solve_kw, mesh=amg.ShardMesh(d, "cuda"),
+                transport="remote")
+            check_certified(label, run["info"], run["scipy_rel"])
+            infos[d] = run["info"]
+            if d == SHARDS:
+                expect_launches(label, launches, ("dia_spmv", "remote_halo"))
+                paths[f"sharded_{name}"] = launches
+            del solver
+        four, one = infos[SHARDS], infos[1]
+        diffs = [abs(u - v) for u, v in zip(four["inner_iters"],
+                                             one["inner_iters"])]
+        print(f"sharded {name} partition invariance: d={SHARDS} inner "
+              f"{four['inner_iters']} outer {four['outer_iters']} | d=1 "
+              f"inner {one['inner_iters']} outer {one['outer_iters']}",
+              flush=True)
+        if any(diffs) or four["outer_iters"] != one["outer_iters"]:
+            histories(f"sharded {name} d={SHARDS}", four)
+            histories(f"sharded {name} d=1", one)
+            if max(diffs, default=0) > 1 or \
+                    four["outer_iters"] != one["outer_iters"]:
+                raise AssertionError(f"sharded {name}: 1-shard counts "
+                                     "differ by more than one iteration")
+    return paths
+
+
+def variant_parity():
+    """Phase 11e: the GPU/CPU iteration parity of 11a-11d at
+    VARIANT_PARITY_N³."""
+    import omp_amg_tpu_torch as amg
+
+    n = VARIANT_PARITY_N
+    grid = (n,) * 3
+    a27 = amg.poisson3d_27pt(n)
+    parity(f"cheby structured 27pt n={n}^3", a27,
+           amg.AMGParams(smoother="chebyshev"), grid)
+    parity(f"cheby pmis 27pt n={n}^3", a27,
+           amg.AMGParams(coarsening="pmis", smoother="chebyshev"), None)
+    a = amg.poisson3d_7pt(n)
+    for pipeline, base, g in (("pmis", {"coarsening": "pmis"}, None),
+                              ("structured", {}, grid)):
+        for name, kw, solve_kw in (
+                ("l1jacobi", {"smoother": "l1jacobi"}, {}),
+                ("w", {"cycle": "w"}, {}), ("f", {"cycle": "f"}, {}),
+                ("inv", {"coarse_solver": "inv", "coarse_size": 400}, {}),
+                ("pipelined", {}, {"variant": "pipelined"}),
+                ("device loop", {}, {"residual": "device"})):
+            parity(f"{pipeline} {name} n={n}^3", a,
+                   amg.AMGParams(**base, **kw), g, solve_kw=solve_kw)
+    for name, kw, solve_kw in (("chebyshev", {"smoother": "chebyshev"}, {}),
+                               ("pipelined", {}, {"variant": "pipelined"})):
+        parity(f"sharded d={SHARDS} {name} n={n}^3", a, amg.AMGParams(**kw),
+               grid, shards=SHARDS, solve_kw=solve_kw, transport="remote",
+               agg_rows_per_dev=64)
 
 
 def main() -> int:
@@ -1128,13 +1486,23 @@ def main() -> int:
     rows["remote_halo"] = sh_rows["remote_halo"]
     rows["dia_spmv"] += sh_rows["dia_spmv"]
 
+    # phase 11: the smoother, cycle, coarse-solve and Krylov options and
+    # the device certified loop
+    cheby_paths, cheby_rows = cheby_configs(counters, rng, flush)
+    for name, more in cheby_rows.items():
+        rows[name] += more
+    option_launches = option_paths(args.n, counters)
+    sharded_launches = sharded_variants(args.n, counters)
+    variant_parity()
+
     if any(m.startswith(("jax", "omp_amg_tpu.")) or m == "omp_amg_tpu"
            for m in sys.modules):
         raise AssertionError("the JAX package was imported")
 
     paths = {"pmis": pmis_launches, "pmis_probe": probe_launches,
              "structured_3d": s3_launches, "structured_2d": s2_launches,
-             "sharded_3d": sh_launches}
+             "sharded_3d": sh_launches, **cheby_paths, **option_launches,
+             **sharded_launches}
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     print("main-path launches: " + " ".join(f"{k}={v}"
@@ -1158,7 +1526,8 @@ def main() -> int:
                 "bound_us": main_row["bound_us"],
                 "library_ms": main_row["library_ms"]}
 
-    print(f"kernels line: launches sum the five main paths; ms, plain_ms, "
+    print(f"kernels line: launches sum the {len(paths)} main paths; ms, "
+          f"plain_ms, "
           f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
           f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
           f"panel_spmm:L0-A·PV, extract_lanes:L0 and "

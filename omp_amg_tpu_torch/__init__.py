@@ -19,6 +19,11 @@ through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
   launch over its exchanged window, and ``transport="remote"`` exchanges
   the plane halos of all shards in one ``remote_halo.cu`` launch.
 
+Every smoother (weighted and l1 Jacobi, Chebyshev), cycle (V, W, F),
+coarse solve (Cholesky, inverse) and PCG variant (standard, pipelined) of
+the reference runs on each path; the certified f64 outer loop forms its
+residual on the host or, native f64, on the card.
+
 The entry points (``AMGSolver``, ``amg_setup``, ``hierarchy_from_numpy``)
 run on the card by default (``device="cuda"``) and raise without CUDA; a CPU
 run passes ``device="cpu"``, and on CPU tensors the kernels' plain PyTorch
@@ -29,6 +34,7 @@ Imports torch, numpy and scipy; never JAX or ``omp_amg_tpu``.
 
 from .amg.hierarchy import Hierarchy, Level, amg_setup, hierarchy_stats  # noqa: F401
 from .amg.params import AMGParams  # noqa: F401
+from .amg.smoothers import chebyshev, estimate_lmax  # noqa: F401
 from .amg.structured import GridProlong, GridRestrict  # noqa: F401
 from .amg.vcycle import vcycle  # noqa: F401
 from .interop import dist_hierarchy_from_numpy, hierarchy_from_numpy  # noqa: F401
@@ -38,6 +44,6 @@ from .problems.poisson import (  # noqa: F401
     stencil_to_dia,
 )
 from .solver import AMGSolver  # noqa: F401
-from .solvers.cg import amg_pcg, pcg  # noqa: F401
-from .solvers.ir import solve_ir  # noqa: F401
+from .solvers.cg import amg_pcg, cg, pcg, pcg_pipelined  # noqa: F401
+from .solvers.ir import solve_ir, solve_ir_device  # noqa: F401
 from .sparse.formats import ConstDia, Csr, Dia, dia_to_scipy  # noqa: F401

@@ -17,8 +17,14 @@ reference's. Only the device forms differ:
   needed: the diagonal-major ``Dia`` serves on the GPU;
 - ``dinv`` is f32 on the host and ``lmax`` an f32 value. The Jacobi scale
   ``s = ω·dinv`` with ω = 4/(3·1.1·λmax) is precomputed in float32, as the
-  reference's traced arithmetic computes it; on a ``ConstDia`` level, whose
-  diagonal is constant, it is one number.
+  reference's traced arithmetic computes it. ``dinv`` is the inverse
+  diagonal, or with ``smoother="l1jacobi"`` the inverse row l1 norm
+  1/Σ|a_ij|. On a ``ConstDia`` level whose ``s`` (and ``dinv``) is constant
+  the device copy is one number; the l1 scale of a ``ConstDia`` varies at
+  the grid boundary, so it stays a per-row tensor and the level runs the
+  unfused sweep (the reference's ``const_scalar=False``);
+- ``coarse_solver="inv"`` stores the symmetrized inverse of the coarsest
+  operator in ``coarse_chol`` instead of its Cholesky factor.
 
 With ``AMGParams(rap="probe")`` the PMIS setup takes each coarse operator's
 values from the device numeric phase (``ops/probe_rap.py``) on ``device``;
@@ -50,19 +56,23 @@ BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
 @dataclass(frozen=True)
 class Level:
     a: Dia | Csr | ConstDia     # the level operator
-    dinv: np.ndarray            # (n,) f32 inverse diagonal, host only: the
-                                # smoothers read s
+    dinv: np.ndarray            # (n,) f32 inverse diagonal (l1jacobi: the
+                                # inverse row l1 norm), on the host
     p: Csr | GridProlong        # prolongation to this level from level l+1
     r: Csr | GridRestrict       # restriction = Pᵀ
     lmax: float                 # f32 value: largest eigenvalue of D⁻¹A
     s: torch.Tensor | float     # Jacobi scale ω·dinv: (n,) f32, or one f32
-                                # value (a float) on a ConstDia level
+                                # value (a float) on a ConstDia level where
+                                # it is constant
+    dinv_dev: torch.Tensor | float  # dinv on the device, in the form of s
+                                    # (Chebyshev reads it)
 
 
 @dataclass(frozen=True)
 class Hierarchy:
     levels: Tuple[Level, ...]
-    coarse_chol: torch.Tensor   # (nc, nc) f32 lower Cholesky factor
+    coarse_chol: torch.Tensor   # (nc, nc) f32 lower Cholesky factor, or
+                                # the inverse (coarse_solver="inv")
     params: AMGParams
 
     @property
@@ -75,16 +85,16 @@ class Hierarchy:
 
 
 def check_supported(params: AMGParams) -> None:
-    """Raise for the parameters the port does not implement yet: it runs
-    the classical PMIS and the structured setups with the host Galerkin
-    products (PMIS: or the device numeric phase, ``rap="probe"``), weighted
-    Jacobi, the V-cycle and the Cholesky coarse solve."""
+    """Raise for parameter values the port does not implement: it runs the
+    classical PMIS and the structured setups with the host Galerkin
+    products (PMIS: or the device numeric phase, ``rap="probe"``), every
+    smoother, cycle and coarse solve of the reference."""
     unsupported = {
         "coarsening": (params.coarsening, ("pmis", "auto", "structured")),
         "rap": (params.rap, ("auto", "host", "probe")),
-        "smoother": (params.smoother, ("jacobi",)),
-        "cycle": (params.cycle, ("v",)),
-        "coarse_solver": (params.coarse_solver, ("chol",)),
+        "smoother": (params.smoother, ("jacobi", "l1jacobi", "chebyshev")),
+        "cycle": (params.cycle, ("v", "w", "f")),
+        "coarse_solver": (params.coarse_solver, ("chol", "inv")),
         "interp": (params.interp, ("extpi", "standard", "direct")),
     }
     for name, (value, ok) in unsupported.items():
@@ -108,25 +118,35 @@ def jacobi_scale(dinv: np.ndarray, lmax, params: AMGParams) -> np.ndarray:
     return jacobi_omega(lmax, params) * np.asarray(dinv, np.float32)
 
 
+def device_scale(a, v: np.ndarray, device):
+    """A per-row f32 vector on ``device``, or one float where ``a`` is a
+    ``ConstDia`` and every row holds the same value (the stencil kernel's
+    scalar operand)."""
+    v = np.array(v, np.float32)         # an owned, writable copy
+    if isinstance(a, ConstDia) and np.all(v == v[0]):
+        return float(v[0])
+    return torch.from_numpy(v).to(device)
+
+
 def make_level(a, dinv, lmax, p, r, params: AMGParams, device) -> Level:
     """Level from its device operators and host f64/f32 ``dinv``, ``lmax``."""
-    s = jacobi_scale(dinv, lmax, params)
-    if isinstance(a, ConstDia):
-        if not np.all(s == s[0]):
-            raise ValueError("a ConstDia level needs a constant diagonal")
-        s_dev = float(s[0])
-    else:
-        s_dev = torch.from_numpy(s).to(device)
+    dinv = np.asarray(dinv, np.float32)
     return Level(
-        a=a, p=p, r=r,
-        dinv=np.asarray(dinv, np.float32),
-        lmax=float(np.float32(lmax)), s=s_dev)
+        a=a, p=p, r=r, dinv=dinv, lmax=float(np.float32(lmax)),
+        s=device_scale(a, jacobi_scale(dinv, lmax, params), device),
+        dinv_dev=device_scale(a, dinv, device))
 
 
 def _coarse_factor(dense: np.ndarray, params: AMGParams) -> np.ndarray:
     """Coarse-solve data from the densified coarsest operator (f64 host):
-    the lower Cholesky factor (two triangular solves per application)."""
-    return np.linalg.cholesky(dense)  # also validates SPD
+    the lower Cholesky factor (two triangular solves per application), or
+    with ``coarse_solver="inv"`` the symmetrized inverse 0.5·(A⁻¹ + A⁻ᵀ)
+    (one product per application; exact symmetry keeps the cycle SPD)."""
+    chol = np.linalg.cholesky(dense)  # also validates SPD in both modes
+    if params.coarse_solver == "inv":
+        inv = np.linalg.inv(dense)
+        return 0.5 * (inv + inv.T)
+    return chol
 
 
 def _estimate_lmax_host(a_sp, dinv: np.ndarray, iters: int | None = None
@@ -286,7 +306,10 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
         ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
         if params.rap == "probe":
             ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
-        dinv = 1.0 / a_sp.diagonal()
+        if params.smoother == "l1jacobi":
+            dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
+        else:
+            dinv = 1.0 / a_sp.diagonal()
         lmax = _estimate_lmax_host(a_sp, dinv)
         if a_lvl is None:
             a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device=device)
@@ -391,7 +414,12 @@ def _amg_setup_structured(a, dims, params: AMGParams, device,
             cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
             offs_c, data_c = dia_planes_from_scipy(
                 galerkin_product(cur_sp, prolong_to_scipy(p)))
-        dinv = 1.0 / data[offsets.index(0)]
+        if params.smoother == "l1jacobi":
+            # out-of-range taps are stored as exact zeros: the row l1 norm
+            # is a plane-wise |·| sum
+            dinv = 1.0 / np.abs(data).sum(axis=0)
+        else:
+            dinv = 1.0 / data[offsets.index(0)]
         data_f = np.ascontiguousarray(data, np.float32)
         if n >= (1 << 18) and native.available():
             def apply_fn(v):

@@ -2,10 +2,13 @@
 the port, as numpy arrays.
 
 ``hierarchy_from_numpy`` takes per level the operator A, the transfers P and
-R, ``dinv`` and ``lmax``; plus the coarse Cholesky factor and the
-parameters. ELL padding (col 0, val 0) is dropped on the way to CSR; each
-row keeps its slot order. ``dist_hierarchy_from_numpy`` does the same for
-a z-slab distributed hierarchy, onto a ``ShardMesh``.
+R, ``dinv`` and ``lmax``; plus the coarse-solve matrix (the Cholesky factor,
+or with ``coarse_solver="inv"`` the inverse) and the parameters. ``s`` and
+the device ``dinv`` take the forms the port's setup gives them (one float
+on a ``ConstDia`` level where they are constant). ELL padding (col 0,
+val 0) is dropped on the way to CSR; each row keeps its slot order.
+``dist_hierarchy_from_numpy`` does the same for a z-slab distributed
+hierarchy, onto a ``ShardMesh``.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ def hierarchy_from_numpy(levels, coarse_chol, params,
       structured grid transfers), or the ELL planes ``p_col``, ``p_val``,
       ``p_n_cols``, ``r_col``, ``r_val``, ``r_n_cols``.
 
+    ``coarse_chol`` is the coarse-solve matrix of ``params.coarse_solver``.
     ``params`` is an ``AMGParams`` or any dataclass with the same fields
     (such as the reference's).
     """
@@ -120,11 +124,11 @@ def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
                      coarse_shape=tuple(int(d) for d in coarse),
                      coarsened=tuple(bool(c) for c in coarsened))
         lmax = float(np.float32(lv["lmax"]))
-        dinv = np.asarray(lv["dinv"], np.float32)
-        s = torch.from_numpy(jacobi_scale(dinv, lmax, params))
-        dinv = torch.from_numpy(dinv.copy())
         if lv["sharded"]:
-            data = torch.from_numpy(np.asarray(lv["a_data"], np.float32))
+            dinv = np.asarray(lv["dinv"], np.float32)
+            s = torch.from_numpy(jacobi_scale(dinv, lmax, params))
+            dinv = torch.from_numpy(dinv.copy())
+            data = torch.from_numpy(np.array(lv["a_data"], np.float32))
             a = SlabDia(data=_compact(_split(data, mesh)),
                         offsets=tuple(int(o) for o in lv["a_offsets"]),
                         dims=tuple(int(d) for d in lv["a_dims"]),
@@ -136,9 +140,11 @@ def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
                 r=SlabRestrict(**shape, gather_out=bool(lv["gather_out"])),
                 lmax=lmax, s=list(_split(s, mesh)), sharded=True))
         else:
-            out.append(DistLevel(
-                a=_operator(lv, dev), dinv=dinv.to(dev),
-                p=GridProlong(**shape), r=GridRestrict(**shape), lmax=lmax,
-                s=s.to(dev), sharded=False))
+            rep = make_level(_operator(lv, dev), lv["dinv"], lmax,
+                             GridProlong(**shape), GridRestrict(**shape),
+                             params, dev)
+            out.append(DistLevel(a=rep.a, dinv=rep.dinv_dev, p=rep.p,
+                                 r=rep.r, lmax=rep.lmax, s=rep.s,
+                                 sharded=False))
     chol = torch.tensor(np.asarray(coarse_chol, np.float32), device=dev)
     return DistHierarchy(levels=tuple(out), coarse_chol=chol, params=params)

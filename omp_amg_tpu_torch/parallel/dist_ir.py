@@ -16,27 +16,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..solvers.ir import IRResult
+from ..solvers.ir import IRResult, dia_apply_f64
 from .dist import DistHierarchy, make_dist_solver, pdot
 from .slab import SlabDia, slab_windows
 
 
 def _f64_slab_spmv(op: SlabDia, xs):
-    """y = A·x in float64 per shard (``op``'s f32/bf16 values widened
-    exactly), taps summed in ascending order over the exchanged window,
-    zeros outside it."""
+    """y = A·x in float64 per shard over its exchanged window
+    (:func:`..solvers.ir.dia_apply_f64`)."""
     n_loc = xs[0].numel()
-    lo = max(0, -min(op.offsets))
-    hi = max(0, max(op.offsets))
-    out = []
-    for blk, (w, base) in zip(op.blocks, slab_windows(op, xs, "ppermute")):
-        wp = torch.nn.functional.pad(w, (lo, hi))
-        y = torch.zeros(n_loc, dtype=torch.float64, device=w.device)
-        for k, off in enumerate(op.offsets):
-            start = base + off + lo
-            y = y + blk.data[k].double() * wp[start:start + n_loc]
-        out.append(y)
-    return out
+    return [dia_apply_f64(op.offsets, blk.data, w, x_base=base, n_rows=n_loc)
+            for blk, (w, base) in zip(op.blocks,
+                                      slab_windows(op, xs, "ppermute"))]
 
 
 def _residual_local(a_op: SlabDia, bs, xs):

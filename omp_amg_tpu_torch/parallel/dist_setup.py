@@ -227,7 +227,11 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
         keep_t = torch.tensor(keep, dtype=torch.int64, device=dev)
         data_c = tuple(t.index_select(0, keep_t).contiguous()
                        for t in data_c)
-        dinv = [1.0 / t[offsets.index(0)] for t in data]
+        if params.smoother == "l1jacobi":
+            # the row l1 norm: out-of-range taps are stored as exact zeros
+            dinv = [1.0 / t.abs().sum(dim=0) for t in data]
+        else:
+            dinv = [1.0 / t[offsets.index(0)] for t in data]
         lmax = _lmax_local(op, dinv)
         sh_levels.append((list(offsets), dims, data, dinv, lmax, axes,
                           coarse_dims, hl, hr))
@@ -262,7 +266,7 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
             s=[t * omega for t in dinv], sharded=True))
     for lv in tail.levels:
         levels.append(DistLevel(
-            a=lv.a, dinv=torch.from_numpy(lv.dinv).to(dev), p=lv.p, r=lv.r,
-            lmax=lv.lmax, s=lv.s, sharded=False))
+            a=lv.a, dinv=lv.dinv_dev, p=lv.p, r=lv.r, lmax=lv.lmax, s=lv.s,
+            sharded=False))
     return DistHierarchy(levels=tuple(levels), coarse_chol=tail.coarse_chol,
                          params=params)

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from dataclasses import replace
 
-import numpy as np
 import torch
 
 from ..amg.hierarchy import Hierarchy
@@ -66,7 +65,6 @@ def _partition_structured(hier: Hierarchy, ndev: int, agg_rows_per_dev: int,
     for l, lv in enumerate(hier.levels):
         a = dias[l]
         p_g = lv.p
-        dinv = torch.from_numpy(np.asarray(lv.dinv, np.float32))
         if sharded[l]:
             hl, hr = slab_halos(a.offsets, a.dims)
             a_op = SlabDia(data=a.data, offsets=tuple(a.offsets),
@@ -80,11 +78,12 @@ def _partition_structured(hier: Hierarchy, ndev: int, agg_rows_per_dev: int,
             r_op = SlabRestrict(**shape, gather_out=trans)
             s = lv.s if isinstance(lv.s, torch.Tensor) else torch.full(
                 (a.n_rows,), lv.s, dtype=torch.float32)
+            dinv = torch.from_numpy(lv.dinv)
         else:
-            a_op, p_op, r_op, s = lv.a, lv.p, lv.r, lv.s
+            a_op, p_op, r_op, s, dinv = lv.a, lv.p, lv.r, lv.s, lv.dinv_dev
         levels.append(DistLevel(
-            a=a_op, dinv=dinv.to(hier.device), p=p_op, r=r_op, lmax=lv.lmax,
-            s=s, sharded=bool(sharded[l])))
+            a=a_op, dinv=dinv, p=p_op, r=r_op, lmax=lv.lmax, s=s,
+            sharded=bool(sharded[l])))
     return DistHierarchy(levels=tuple(levels), coarse_chol=hier.coarse_chol,
                          params=hier.params)
 

@@ -19,6 +19,14 @@
                            mesh=amg.ShardMesh(4, "cuda"),
                            transport="remote")     # z-slab distributed
 
+    solver = amg.AMGSolver(a, amg.AMGParams(smoother="chebyshev",
+                                            cycle="w"), grid=(128,) * 3)
+    x = solver.solve(b, variant="pipelined",       # single-reduction PCG
+                     device_result=True)           # x stays on the card
+
+On CUDA the certified loop of a ``Dia`` operator forms its f64 residual on
+the card (``residual="auto"``); ``residual="host"`` forms it on the host.
+
 The device defaults to ``"cuda"``; without CUDA that raises, and nothing
 moves to the CPU on its own: a CPU run passes ``device="cpu"`` (with a mesh,
 ``ShardMesh(d, "cpu")`` and ``device="cpu"``).
@@ -37,7 +45,8 @@ from .amg.params import AMGParams
 from .amg.vcycle import vcycle
 from .native import CsrMatvec
 from .solvers.cg import amg_pcg
-from .solvers.ir import solve_ir
+from .solvers.ir import solve_ir, solve_ir_device
+from .sparse.formats import Dia
 from .utils.device import resolve_device
 
 
@@ -83,13 +92,13 @@ class AMGSolver:
         self.hierarchy: Hierarchy = amg_setup(a, params, device=self.device,
                                               grid=grid)
         self._a_host = None
+        self._a_f64 = None
 
     def _init_dist(self, a, params, device, grid, transport,
                    agg_rows_per_dev, flavor, refreshable):
         from .parallel.dist_setup import dist_structured_setup
         from .parallel.partition import partition_hierarchy, place_hierarchy
         from .parallel.slab import check_transport
-        from .sparse.formats import Dia
 
         if refreshable:
             raise NotImplementedError("refreshable=True with mesh= (the "
@@ -115,6 +124,7 @@ class AMGSolver:
         self.params = params
         self.last_info = {}
         self._a_host = None
+        self._a_f64 = None
         dh = None
         if grid is not None and isinstance(a, Dia):
             try:
@@ -139,6 +149,21 @@ class AMGSolver:
         return fine_operator(self.a, self.device)
 
     @property
+    def a_f64(self) -> Dia:
+        """The fine ``Dia`` with float64 planes on the device, for the
+        device certified loop (copied there once)."""
+        if self._a_f64 is None:
+            if not isinstance(self.a, Dia):
+                raise TypeError("the device certified loop needs a Dia "
+                                "operator")
+            data = self.a.data if isinstance(self.a.data, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(self.a.data))
+            self._a_f64 = Dia(data=data.to(self.device, torch.float64),
+                              offsets=tuple(self.a.offsets),
+                              dims=self.a.dims)
+        return self._a_f64
+
+    @property
     def a_host(self) -> CsrMatvec:
         """f64 host matvec of the fine operator (certified residuals)."""
         if self._a_host is None:
@@ -157,33 +182,64 @@ class AMGSolver:
         return hierarchy_stats(self.hierarchy)
 
     def solve(self, b, tol: float = 1e-8, maxiter: int = 500,
-              certify: bool = True):
+              certify: bool = True, residual: str = "auto",
+              device_result: bool = False, variant: str = "standard"):
         """Solve A x = b.
 
-        ``certify=True`` (default) runs the f64 defect-correction outer loop
-        with host residuals, so the returned residual is a true f64
-        ‖r‖/‖b‖ ≤ tol and x is a float64 numpy array; ``certify=False``
-        returns the f32 device solve as a tensor.
+        ``certify=True`` (default) runs the f64 defect-correction outer loop,
+        so the returned residual is a true f64 ‖r‖/‖b‖ ≤ tol; ``certify=
+        False`` returns the f32 device solve as a tensor. ``residual`` picks
+        where the certified loop forms its f64 residual: ``"host"`` (a host
+        CSR product; x comes back as a float64 numpy array), ``"device"``
+        (native f64 on the hierarchy's device; needs a ``Dia`` operator), or
+        ``"auto"``: the device loop when the hierarchy is on CUDA and the
+        operator is a ``Dia``, else the host loop. ``device_result=True``
+        (device loop only) returns x as a float64 tensor on the device. On a
+        mesh the certified loop always runs on the device. ``variant``:
+        ``"standard"`` or ``"pipelined"`` (single-reduction) PCG.
         """
-        if isinstance(b, torch.Tensor):
-            b = b.detach().cpu().numpy()
+        if residual not in ("auto", "host", "device"):
+            raise ValueError(f"residual={residual!r} (supported: auto, host, "
+                             "device)")
         if self.mesh is not None:
-            return self._solve_dist(b, tol, maxiter, certify)
+            if residual == "host" or device_result:
+                raise ValueError("the distributed certified loop forms its "
+                                 "residual on the device and returns x on "
+                                 "the host")
+            if isinstance(b, torch.Tensor):
+                b = b.detach().cpu().numpy()
+            return self._solve_dist(b, tol, maxiter, certify, variant)
+        on_device = residual == "device" or (
+            residual == "auto" and isinstance(self.a, Dia)
+            and self.device.type == "cuda")
+        if device_result and not (certify and on_device):
+            raise ValueError("device_result=True needs the certified device "
+                             "loop (residual='device')")
         if certify:
-            res = solve_ir(self.a_host, np.asarray(b, np.float64), self.a_dev,
-                           self.hierarchy, tol=tol, maxiter=maxiter)
+            if on_device:
+                res = solve_ir_device(self.a_f64, b, self.hierarchy, tol=tol,
+                                      maxiter=maxiter, variant=variant,
+                                      a_dev=self.a_dev,
+                                      to_host=not device_result)
+            else:
+                if isinstance(b, torch.Tensor):
+                    b = b.detach().cpu().numpy()
+                res = solve_ir(self.a_host, np.asarray(b, np.float64),
+                               self.a_dev, self.hierarchy, tol=tol,
+                               maxiter=maxiter, variant=variant)
             self.last_info = {
                 "iters": sum(res.inner_iters),
                 "inner_iters": list(res.inner_iters),
                 "outer_iters": res.outer_iters,
                 "rel_residual": res.rel_residual,
                 "certified_f64": True,
+                "residual": "device" if on_device else "host",
                 "residual_histories": res.histories,
             }
             return res.x
-        rhs = torch.from_numpy(np.asarray(b, np.float32)).to(self.device)
+        rhs = torch.as_tensor(b).detach().to(self.device, torch.float32)
         res = amg_pcg(self.a_dev, rhs, self.hierarchy, tol=tol,
-                      maxiter=maxiter)
+                      maxiter=maxiter, variant=variant)
         self.last_info = {
             "iters": res.iters,
             "rel_residual": res.rel_residual,
@@ -191,7 +247,7 @@ class AMGSolver:
         }
         return res.x
 
-    def _solve_dist(self, b, tol, maxiter, certify):
+    def _solve_dist(self, b, tol, maxiter, certify, variant):
         from .parallel.dist import make_dist_solver
         from .parallel.dist_ir import make_dist_ir_solver
         from .parallel.partition import pad_vector, unpad_vector
@@ -200,10 +256,11 @@ class AMGSolver:
         bp = pad_vector(np.asarray(b, np.float64), self.hierarchy,
                         self.mesh.size)
         if certify:
-            key = ("ir", tol, int(maxiter))
+            key = ("ir", tol, int(maxiter), variant)
             if self._dist is None or self._dist[0] != key:
                 self._dist = (key, make_dist_ir_solver(
-                    self.mesh, self.hierarchy, tol=tol, maxiter=maxiter))
+                    self.mesh, self.hierarchy, tol=tol, maxiter=maxiter,
+                    variant=variant))
             res = self._dist[1](self.hierarchy, bp)
             self.last_info = {
                 "iters": sum(res.inner_iters),
@@ -211,14 +268,16 @@ class AMGSolver:
                 "outer_iters": res.outer_iters,
                 "rel_residual": res.rel_residual,
                 "certified_f64": True,
+                "residual": "device",
                 "distributed": True,
                 "residual_histories": res.histories,
             }
             return unpad_vector(res.x, n)
-        key = (int(maxiter),)
+        key = (int(maxiter), variant)
         if self._dist is None or self._dist[0] != key:
             self._dist = (key, make_dist_solver(self.mesh, self.hierarchy,
-                                                tol=tol, maxiter=maxiter))
+                                                tol=tol, maxiter=maxiter,
+                                                variant=variant))
         rhs = torch.from_numpy(bp.astype(np.float32))
         res = self._dist[1](self.hierarchy, rhs, tol)
         self.last_info = {"iters": res.iters,

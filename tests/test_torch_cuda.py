@@ -6,7 +6,9 @@ one-plane, one-line, interior-block and unaligned grids at any z-chunk,
 ``panel_spmm`` on both of its instances, ``remote_halo``
 exactly), and the GPU solves' iteration counts
 (PMIS, PMIS with the probed Galerkin values, structured, and structured on
-a 4-shard mesh) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
+a 4-shard mesh; and with the Chebyshev and l1-Jacobi smoothers, the W and F
+cycles, the ``inv`` coarse solve, the pipelined PCG and the device
+certified loop) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere (the CPU runs only the twins). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -547,3 +549,73 @@ def test_dia_kernel_both_paths_bitwise_twin(name, mode, dtype):
             a.offsets_i32, a.data.data_ptr(), x.data_ptr(), base,
             x.numel(), None, None, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream) != 0
+
+
+OPTION_CASES = {
+    "structured_chebyshev": ({"smoother": "chebyshev"}, True, {}),
+    "pmis_chebyshev": ({"coarsening": "pmis", "smoother": "chebyshev"},
+                       False, {}),
+    "structured_l1jacobi_f": ({"smoother": "l1jacobi", "cycle": "f"}, True,
+                              {}),
+    "structured_w": ({"cycle": "w"}, True, {}),
+    "pmis_w": ({"coarsening": "pmis", "cycle": "w"}, False, {}),
+    "structured_inv": ({"coarse_solver": "inv", "coarse_size": 400}, True,
+                       {}),
+    "pmis_inv": ({"coarsening": "pmis", "coarse_solver": "inv",
+                  "coarse_size": 400}, False, {}),
+    "structured_pipelined": ({}, True, {"variant": "pipelined"}),
+    "pmis_pipelined": ({"coarsening": "pmis"}, False,
+                       {"variant": "pipelined"}),
+    "structured_device_residual": ({}, True, {"residual": "device"}),
+    "pmis_device_residual": ({"coarsening": "pmis"}, False,
+                             {"residual": "device"}),
+}
+
+
+@pytest.mark.parametrize("case", list(OPTION_CASES))
+def test_gpu_option_solve_matches_cpu_iterations(case):
+    _need_cuda()
+    kw, structured, solve_kw = OPTION_CASES[case]
+    a = amg.poisson3d_7pt(32)
+    b = amg.default_rhs(a, seed=0)
+    infos = []
+    for device in ("cuda", "cpu"):
+        solver = amg.AMGSolver(a, amg.AMGParams(**kw), device=device,
+                               grid=(32,) * 3 if structured else None)
+        solver.solve(b, tol=1e-8, **solve_kw)
+        infos.append(solver.last_info)
+    assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
+    assert infos[0]["rel_residual"] <= 1e-8
+    assert infos[0]["residual"] == solve_kw.get("residual", "device")
+
+
+def test_device_result_bitwise_equals_host_copy():
+    _need_cuda()
+    a = amg.poisson3d_7pt(32)
+    b = amg.default_rhs(a, seed=0)
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(32,) * 3)
+    x = solver.solve(b, tol=1e-8, residual="device")
+    xt = solver.solve(b.cuda(), tol=1e-8, residual="device",
+                      device_result=True)
+    assert xt.is_cuda and xt.dtype == torch.float64
+    assert np.array_equal(xt.cpu().numpy(), x)
+
+
+@pytest.mark.parametrize("kw,variant", [({"smoother": "chebyshev"},
+                                         "standard"),
+                                        ({}, "pipelined")])
+def test_sharded_option_solve_matches_cpu_iterations(kw, variant):
+    _need_cuda()
+    a = amg.poisson3d_7pt(24)
+    b = amg.default_rhs(a, seed=0)
+    infos = []
+    for device in ("cuda", "cpu"):
+        solver = amg.AMGSolver(a, amg.AMGParams(**kw), grid=(24, 24, 24),
+                               mesh=amg.ShardMesh(4, device), device=device,
+                               transport="remote")
+        solver.solve(b, tol=1e-8, variant=variant)
+        infos.append(solver.last_info)
+    assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
+    assert infos[0]["rel_residual"] <= 1e-8

@@ -13,6 +13,11 @@ CPU (the reference on the 8 virtual CPU devices):
   inner count of each outer pass and the outer count equal to the
   reference's distributed certified solve (df64 residuals there, native f64
   here);
+- the options: one sharded cycle with Chebyshev, l1-Jacobi, the W and F
+  cycles and the ``inv`` coarse solve on the reference's hierarchy
+  (1e-5·max|ref|), and ``make_dist_solver`` with Chebyshev, l1-Jacobi, the
+  W cycle and the pipelined PCG on each package's own per-shard setup:
+  equal iteration counts; the pipelined count within one of standard's;
 - the facade's refusals with a mesh.
 """
 
@@ -141,6 +146,7 @@ def test_certified_facade_counts_equal_reference():
     x = solver.solve(b_t, tol=1e-8)
     info = solver.last_info
     assert info["certified_f64"] and info["distributed"]
+    assert info["residual"] == "device"
     assert info["rel_residual"] <= 1e-8 and res_j.rel_residual <= 1e-8
     true_rel = (np.linalg.norm(b64 - port.dia_to_scipy(a) @ x)
                 / np.linalg.norm(b64))
@@ -153,6 +159,11 @@ def test_certified_facade_counts_equal_reference():
         <= 1e-6
     z = solver.precondition(b_t)
     assert z.shape == (a.n_rows,) and torch.isfinite(z).all()
+    # the sharded certified loop forms its residual on the device and
+    # returns x on the host
+    for kw in (dict(residual="host"), dict(device_result=True)):
+        with pytest.raises(ValueError):
+            solver.solve(b_t, **kw)
 
 
 @pytest.mark.parametrize("d", [1, 4])
@@ -187,6 +198,67 @@ def test_partitioned_central_hierarchy_matches_serial(d):
     assert (res.x - serial.x).abs().max() <= 1e-4 * serial.x.abs().max()
 
 
+CYCLE_OPTIONS = {
+    "l1jacobi_w": {"smoother": "l1jacobi", "cycle": "w"},
+    "chebyshev_f_inv": {"smoother": "chebyshev", "cycle": "f",
+                        "coarse_solver": "inv"},
+}
+
+
+@pytest.mark.parametrize("option", list(CYCLE_OPTIONS))
+def test_option_cycle_on_reference_hierarchy(option):
+    a_j = ref.poisson3d_7pt(16)
+    mesh_j = _ref_mesh(4)
+    dh_j = ref_dist_setup(a_j, DIMS, mesh_j,
+                          RefParams(coarse_size=60, **CYCLE_OPTIONS[option]),
+                          agg_rows_per_dev=32)
+    levels, chol = _dist_to_numpy(dh_j)
+    mesh = port.ShardMesh(4, "cpu")
+    dh = port.dist_hierarchy_from_numpy(levels, chol, dh_j.params, mesh,
+                                        transport="remote")
+    b = _rhs(a_j.n_rows)
+    want = np.asarray(ref_make_dist_vcycle(mesh_j, dh_j)(dh_j,
+                                                         jnp.asarray(b)))
+    got = make_dist_vcycle(mesh, dh)(dh, torch.from_numpy(b)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+SOLVE_OPTIONS = {
+    "chebyshev": ({"smoother": "chebyshev"}, "standard"),
+    "l1jacobi": ({"smoother": "l1jacobi"}, "standard"),
+    "w": ({"cycle": "w"}, "standard"),
+    "pipelined": ({}, "pipelined"),
+}
+
+
+@pytest.mark.parametrize("option", list(SOLVE_OPTIONS))
+def test_dist_solver_options_count_equal_reference(option):
+    kw, variant = SOLVE_OPTIONS[option]
+    a_j = ref.poisson3d_7pt(16)
+    mesh_j = _ref_mesh(4)
+    dh_j = ref_dist_setup(a_j, DIMS, mesh_j, RefParams(coarse_size=60, **kw),
+                          agg_rows_per_dev=32)
+    b = _rhs(a_j.n_rows)
+    _, iters_j, _ = ref_make_dist_solver(mesh_j, dh_j, tol=1e-6, maxiter=100,
+                                         variant=variant)(
+        dh_j, jnp.asarray(b))
+    mesh = port.ShardMesh(4, "cpu")
+    dh = dist_structured_setup(port.poisson3d_7pt(16), DIMS, mesh,
+                               port.AMGParams(coarse_size=60, **kw),
+                               agg_rows_per_dev=32, transport="remote")
+    res = make_dist_solver(mesh, dh, tol=1e-6, maxiter=100,
+                           variant=variant)(dh, torch.from_numpy(b))
+    assert res.iters == int(iters_j), (res.iters, int(iters_j))
+    assert res.rel_residual <= 1e-6
+    assert len(res.history) == res.iters + 1
+    if variant == "pipelined":
+        std = make_dist_solver(mesh, dh, tol=1e-6, maxiter=100)(
+            dh, torch.from_numpy(b))
+        assert 0 <= res.iters - std.iters <= 1
+        np.testing.assert_allclose(res.x.numpy(), std.x.numpy(), rtol=2e-3,
+                                   atol=2e-4)
+
+
 def test_facade_refusals_with_mesh():
     a = port.poisson3d_7pt(8)
     mesh = port.ShardMesh(2, "cpu")
@@ -199,5 +271,6 @@ def test_facade_refusals_with_mesh():
     with pytest.raises(ValueError):
         # the default device ("cuda") is not the mesh's
         port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), mesh=mesh)
-    with pytest.raises(NotImplementedError):
-        make_dist_solver(mesh, None, variant="pipelined")
+    # the pipelined PCG is ported; a variant outside the two is refused
+    with pytest.raises(ValueError):
+        make_dist_solver(mesh, None, variant="fused")

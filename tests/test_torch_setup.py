@@ -110,10 +110,16 @@ def test_device_forms(setups):
 
 def test_unported_parameters_raise():
     a = port.poisson3d_7pt(8)
+    # every smoother, cycle and coarse solve of the reference sets up ...
     for kw in (dict(smoother="chebyshev"), dict(cycle="w"),
                dict(smoother="l1jacobi"), dict(coarse_solver="inv")):
+        assert port.amg_setup(a, port.AMGParams(coarsening="pmis", **kw),
+                              device="cpu").levels
+    # ... values outside them do not
+    for kw in (dict(smoother="sor"), dict(cycle="k"),
+               dict(coarse_solver="lu")):
         with pytest.raises(NotImplementedError):
-            port.amg_setup(a, port.AMGParams(**kw))
+            port.amg_setup(a, port.AMGParams(**kw), device="cpu")
     # structured coarsening is ported; without a grid it is refused
     with pytest.raises(ValueError):
         port.amg_setup(a, port.AMGParams(coarsening="structured"))

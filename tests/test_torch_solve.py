@@ -7,7 +7,8 @@
   ``bench.py``'s PMIS configs at CPU sizes (2d5pt 32², aniso9pt 32² at
   θ = 0.5, 27pt 12³): the same inner iteration counts per outer pass and
   the same outer count as the reference, with a true f64 relative residual
-  ≤ 1e-8.
+  ≤ 1e-8; also bench.py's fourth config, 27pt with the Chebyshev smoother
+  (12³ here).
 """
 
 import jax
@@ -96,6 +97,7 @@ BENCH_CONFIGS = {
     "2d5pt_32": ("poisson2d_5pt", 32, {}),
     "aniso9pt_32_theta0.5": ("aniso2d_9pt", 32, {"theta": 0.5}),
     "27pt_12": ("poisson3d_27pt", 12, {}),
+    "27pt_12_cheby": ("poisson3d_27pt", 12, {"smoother": "chebyshev"}),
 }
 
 
@@ -151,8 +153,9 @@ def test_solver_raises_on_unported_options(monkeypatch):
     # structured hierarchies do not refresh: refused at construction
     with pytest.raises(ValueError):
         port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), refreshable=True)
+    # every smoother of the reference is ported; a value outside them is not
     with pytest.raises(NotImplementedError):
-        port.AMGSolver(a, port.AMGParams(smoother="l1jacobi"))
+        port.AMGSolver(a, port.AMGParams(smoother="gauss-seidel"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         port.AMGSolver(a, p, device="cuda")
