@@ -57,8 +57,11 @@ Phases (each raises on failure, so the exit code is non-zero):
    one printed with both residual histories), and a ``torch.profiler`` run
    of one warm solve (device busy share, the largest kernels); then (10b)
    ``remote_halo`` on the sharded levels L0, L1, L2 at d = 4 and L0 at
-   d = 8, exact against its twin, the masked windows against the plain
-   exchange, and ``dia_spmv``'s x-window mode on an L0 shard; (10c) the
+   d = 8: the windows exact against the twin (its path held against the
+   launch counters; at L0, d = 4, the scalar path forced too) and against
+   the plain exchange, and per shape a ``halo`` line with the exchange's
+   device µs on both transports, the bound and the host's enqueue µs per
+   exchange; and ``dia_spmv``'s x-window mode on an L0 shard; (10c) the
    sharded GPU/CPU iteration parity at 32³, 4 shards;
 11. the options: (11a) ``bench.py``'s ``3d27pt_128_cheby`` (27-point 128³,
    ``AMGParams(smoother="chebyshev")``) structured and PMIS, its counts
@@ -109,6 +112,7 @@ CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
 CONST_BOUND = 0.0   # same products and order as the twin: bitwise
 PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
 HALO_BOUND = 0.0    # remote_halo is a copy: exact
+SPIN_CYCLES = 2_000_000  # cuda_ms' spin before each timed call, ~1 ms
 SHARDS = 4          # z-slab shards of the distributed path on the one card
 SHARD_PARITY_N = 32  # the sharded GPU/CPU iteration-parity grid
 RAP_BOUND = 3e-6    # probed A_c against the host product (f32 sums)
@@ -154,10 +158,10 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     between its own pair of CUDA events. With ``flush`` (a tensor larger
     than the 50 MB L2), the L2 is evicted before every timed call by a
     reduction that reads the whole buffer (it leaves only clean lines), and
-    a spin of about 0.1 ms
-    (``torch.cuda._sleep``) then keeps the stream busy while the host
-    enqueues the call, so that a call whose enqueue takes longer than the
-    flush is still timed on the device alone."""
+    a spin of about 1 ms (``torch.cuda._sleep``) then keeps the stream busy
+    while the host enqueues the call, so that a call whose enqueue takes
+    longer than the flush (a sequence of torch calls: up to 0.24 ms) is
+    still timed on the device alone."""
     import torch
 
     for _ in range(warm):
@@ -167,7 +171,7 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.view(torch.float32).sum()
-            torch.cuda._sleep(200_000)
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -270,19 +274,68 @@ def sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def expect_dia_path(name, call, vector):
-    """One wrapper call launches ``dia_spmv`` once, on the vector path iff
-    ``vector`` (the launch counters say which)."""
-    from omp_amg_tpu_torch.ops import dia_spmv
-
-    before = dia_spmv.launches, dia_spmv.scalar_launches
+def expect_path(mod, name, call, vector):
+    """One wrapper call launches the kernel of ``mod`` (``dia_spmv`` or
+    ``remote_halo``) once, on the vector path iff ``vector`` (the launch
+    counters say which)."""
+    before = mod.launches, mod.scalar_launches
     call()
-    got = (dia_spmv.launches - before[0],
-           dia_spmv.scalar_launches - before[1])
+    got = (mod.launches - before[0], mod.scalar_launches - before[1])
     if got != (1, int(not vector)):
         raise AssertionError(f"{name}: launches {got}, expected "
                              f"{'the vector' if vector else 'the scalar'} "
                              "path once")
+
+
+def halo_scalar_check(name, srcs, nl, nr, flush):
+    """The window kernel's scalar path forced through its C entry point on
+    vector-path operands: bitwise the twin, both paths timed; a ``paths``
+    line. These launches are comparisons, not main-path launches."""
+    import torch
+
+    from omp_amg_tpu_torch import _build
+    from omp_amg_tpu_torch.ops import remote_halo
+
+    lib = _build.cuda_kernels()
+    d, n = len(srcs), srcs[0].numel()
+    out = torch.empty((d, nl + n + nr), device="cuda")
+    table = remote_halo._Table(*(t.data_ptr() for t in srcs))
+
+    def call(vec):
+        rc = lib.remote_halo_window_launch(
+            d, n, nl, nr, out.shape[1], vec, table, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: remote_halo launch failed: {rc}")
+    call(0)
+    want = remote_halo.remote_halo_window_plain(srcs, nl, nr)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"{name}: the forced scalar path differs from "
+                             "the twin")
+    print(f"check {name}:forced-scalar max_abs_err="
+          f"{float((out - want).abs().max()):.6g} (bitwise the twin)",
+          flush=True)
+    times = {p: cuda_ms(lambda: call(vec), flush=flush)
+             for p, vec in (("vector", 1), ("scalar", 0))}
+    print(f"paths {name} " + " ".join(f"{k}_us={v * 1e3:.2f}"
+                                       for k, v in times.items())
+          + " taken=vector", flush=True)
+
+
+def enqueue_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls without a
+    sync: what the host spends enqueuing it (the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def dia_path_times(name, a, x, x_base, flush):
@@ -380,7 +433,7 @@ def dia_checks(tag, a, s, rng, flush, dtypes):
         }
         for mode, (kern, plain, nbytes) in cases.items():
             name = f"dia_spmv:{tag}:{vt}:{mode}:n={n}:ndiag={len(a.offsets)}"
-            expect_dia_path(name, kern, dia_spmv.vector_path(
+            expect_path(dia_spmv, name, kern, dia_spmv.vector_path(
                 ad, x, 0, {"spmv": (), "residual": (b,),
                            "jacobi": (b, s)}[mode], sms()))
             rows.append(compare(name, kern, plain, DIA_BOUND, nbytes, flush,
@@ -841,8 +894,9 @@ def profile_solve(label, solver, b, top=8, **solve_kw):
           f"dtoh_copies={dtoh} device_items={sum(e.count for e in dev)}",
           flush=True)
     for e in items + [e for e in dev if e not in items and any(
-            k in e.key for k in ("remote_halo_kernel", "dia_spmv_kernel",
-                                 "csr_spmv_kernel"))]:
+            k in e.key for k in ("remote_halo_window_kernel",
+                                 "dia_spmv_kernel", "csr_spmv_kernel",
+                                 "CatArray", "FillFunctor"))]:
         print(f"profile {label} item ms={e.self_device_time_total / 1e3:.3f}"
               f" count={e.count} us_each="
               f"{e.self_device_time_total / max(e.count, 1):.2f} "
@@ -911,7 +965,7 @@ def sharded_path(n, counters, flush, rng):
     b = amg.default_rhs(a, seed=SEED)
     profile_solve(f"sharded d={SHARDS} remote n={n}^3", solver, b)
 
-    # 10b: kernel checks at the main path's shapes
+    # 10b: the window kernel at the main path's shapes
     rows = {"remote_halo": [], "dia_spmv": []}
     dh = solver.hierarchy
     shapes = [(f"L{l}", SHARDS, lv.a.data[0].shape[1], lv.a.plane, lv.a.hl,
@@ -922,26 +976,53 @@ def sharded_path(n, counters, flush, rng):
     for tag, d, n_loc, plane, hl, hr in shapes:
         srcs = [_vec(rng, n_loc, "cuda") for _ in range(d)]
         nl, nr = hl * plane, hr * plane
-
-        def library(srcs=srcs, d=d, nl=nl, nr=nr):
-            return ([torch.cat([srcs[(i - 1) % d][n_loc - nl:]
-                                for i in range(d)])],
-                    [torch.cat([srcs[(i + 1) % d][:nr] for i in range(d)])])
-        rows["remote_halo"].append(compare(
-            f"remote_halo:{tag}:d={d}:n_loc={n_loc}:nl={nl}:nr={nr}",
-            lambda: rh.remote_halo(srcs, nl, nr),
-            lambda: rh.remote_halo_plain(srcs, nl, nr), HALO_BOUND,
-            8 * (nl + nr) * d, flush, library=library,
-            flat=lambda lr: torch.cat([*lr[0], *lr[1]])))
+        vec = rh.vector_path(srcs, n_loc, nl, nr)
+        path = "vector" if vec else "scalar"
+        name = (f"remote_halo:{tag}:d={d}:n_loc={n_loc}:nl={nl}:nr={nr}:"
+                f"path={path}")
+        window = (lambda srcs=srcs, nl=nl, nr=nr:
+                  rh.remote_halo_window(srcs, nl, nr))
+        expect_path(rh, name, window, vec)
+        # the library yardstick: one torch.cat of the windows' parts, the
+        # two zero strips made beforehand
+        parts = []
+        for i, x in enumerate(srcs):
+            parts += [srcs[i - 1][n_loc - nl:] if i else x.new_zeros(nl), x,
+                      srcs[i + 1][:nr] if i < d - 1 else x.new_zeros(nr)]
+        # bytes: every window written, every part read but the zero strips
+        nbytes = 4 * d * (nl + n_loc + nr) + 4 * (d * n_loc
+                                                  + (d - 1) * (nl + nr))
+        row = compare(name, window,
+                      lambda: rh.remote_halo_window_plain(srcs, nl, nr),
+                      HALO_BOUND, nbytes, flush,
+                      library=lambda parts=parts: torch.cat(parts),
+                      flat=lambda w: w.reshape(-1))
+        rows["remote_halo"].append(row)
+        del parts
         got = _exchange_planes_remote(srcs, plane, hl, hr)
         want = _exchange_planes(srcs, plane, hl, hr)
         torch.cuda.synchronize()
         if not all(torch.equal(u, v) for u, v in zip(got, want)) or \
                 got[0][:nl].any() or got[-1][got[-1].numel() - nr:].any():
-            raise AssertionError(f"remote_halo {tag} d={d}: the masked "
-                                 "windows differ from the plain exchange")
-        print(f"check remote_halo:{tag}:d={d} masked windows == plain "
-              "exchange, global ends zero", flush=True)
+            raise AssertionError(f"remote_halo {tag} d={d}: the windows "
+                                 "differ from the plain exchange")
+        print(f"check remote_halo:{tag}:d={d} windows == plain exchange, "
+              f"global ends zero, path={path}", flush=True)
+        del got, want
+        remote = (lambda srcs=srcs, plane=plane, hl=hl, hr=hr:
+                  _exchange_planes_remote(srcs, plane, hl, hr))
+        plain = (lambda srcs=srcs, plane=plane, hl=hl, hr=hr:
+                 _exchange_planes(srcs, plane, hl, hr))
+        print(f"halo {tag} d={d} window_us={row['ms'] * 1e3:.2f} "
+              f"exchange_remote_us={cuda_ms(remote, flush=flush) * 1e3:.2f} "
+              f"ppermute_us={cuda_ms(plain, flush=flush) * 1e3:.2f} "
+              f"(a sequence of {d + 2} calls: {d} torch.cat, 2 new_zeros) "
+              f"bound_us={row['bound_us']:.3f} host_enqueue_us_remote="
+              f"{enqueue_us(remote):.2f} host_enqueue_us_ppermute="
+              f"{enqueue_us(plain):.2f} (per exchange, 1000 calls, no sync)",
+              flush=True)
+        if tag == "L0" and d == SHARDS:
+            halo_scalar_check(name, srcs, nl, nr, flush)
     # dia_spmv's x-window mode on shard 1 of L0 (its exchanged window)
     lv = dh.levels[0]
     xs = [_vec(rng, lv0.data[0].shape[1], "cuda") for _ in range(SHARDS)]
@@ -980,7 +1061,7 @@ def sharded_path(n, counters, flush, rng):
     for mode, (kern, plain, nbytes) in cases.items():
         name = (f"dia_spmv:SH-L0-shard1:{vt}:window-{mode}:n={n_loc}:"
                 f"x_len={win.numel()}:ndiag={len(blk.offsets)}")
-        expect_dia_path(name, kern, dia_spmv.vector_path(
+        expect_path(dia_spmv, name, kern, dia_spmv.vector_path(
             blk, win, base, {"spmv": (), "residual": (b1,),
                              "jacobi": (b1, s1)}[mode], sms()))
         rows["dia_spmv"].append(compare(
@@ -1531,7 +1612,7 @@ def main() -> int:
           f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
           f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
           f"panel_spmm:L0-A·PV, extract_lanes:L0 and "
-          f"remote_halo:L0:d={SHARDS} with a cold L2; "
+          f"remote_halo:L0:d={SHARDS} (the windows) with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -1554,7 +1635,8 @@ def main() -> int:
                 "omp_amg_tpu/ops/pallas_spmm.py:624",
                 "extract_lanes:L0"),
         summary("remote_halo", "omp_amg_tpu_torch/csrc/remote_halo.cu",
-                "omp_amg_tpu/parallel/slab.py:138",
+                "omp_amg_tpu/parallel/slab.py:138, "
+                "omp_amg_tpu/parallel/slab.py:172",
                 f"remote_halo:L0:d={SHARDS}:"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

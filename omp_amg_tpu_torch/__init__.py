@@ -16,8 +16,8 @@ through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
 - the same structured path distributed over z-slabs (``mesh=ShardMesh(d)``,
   :mod:`.parallel`): per-shard setup, sharded V-cycle and PCG, the f64
   certified outer loop; every shard-local product is one ``dia_spmv.cu``
-  launch over its exchanged window, and ``transport="remote"`` exchanges
-  the plane halos of all shards in one ``remote_halo.cu`` launch.
+  launch over its exchanged window, and ``transport="remote"`` writes the
+  windows of all shards, halos included, in one ``remote_halo.cu`` launch.
 
 Every smoother (weighted and l1 Jacobi, Chebyshev), cycle (V, W, F),
 coarse solve (Cholesky, inverse) and PCG variant (standard, pipelined) of

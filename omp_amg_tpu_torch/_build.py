@@ -137,9 +137,10 @@ def cuda_kernels() -> ctypes.CDLL:
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32
-        # d, n, nl, nr, src table, left table, right table (host arrays of
-        # d device pointers), stream
-        lib.remote_halo_launch.argtypes = [i32, i64, i64, i64] + [p] * 4
-        lib.remote_halo_launch.restype = i32
+        # d, n, nl, nr, stride, vec, src table (a host array of d device
+        # pointers), dst, stream
+        lib.remote_halo_window_launch.argtypes = ([i32, i64, i64, i64, i64,
+                                                   i32] + [p] * 3)
+        lib.remote_halo_window_launch.restype = i32
         _cuda_lib = lib
     return _cuda_lib

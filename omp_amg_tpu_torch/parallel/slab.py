@@ -16,7 +16,8 @@ A sharded vector is a list of per-shard tensors (:mod:`.mesh`). The halo
 transports are ``"ppermute"`` (plain strip copies, the default, as in the
 reference) and ``"remote"``: the hand-written ``remote_halo`` kernel
 (``ops/remote_halo.py``), the counterpart of the reference's Pallas
-``"pallas"`` transport, then the zero mask at the global ends.
+``"pallas"`` transport with its zero mask and concatenation, which writes
+every shard's window in one launch.
 
 The reference splits each product into interior and boundary rows so that
 XLA can overlap the interior with the exchange; per row both sum the same
@@ -35,7 +36,7 @@ import torch
 
 from ..amg.structured import _prolong_axis, _restrict_axis
 from ..ops import dia_spmv
-from ..ops.remote_halo import remote_halo
+from ..ops.remote_halo import remote_halo_window
 from ..sparse.formats import Dia
 
 TRANSPORTS = ("ppermute", "remote")
@@ -122,41 +123,29 @@ def slab_halos(offsets, dims) -> Tuple[int, int]:
     return max(0, -min(pzs)), max(0, max(pzs))
 
 
-def _windows(xs, lefts, rights):
-    out = []
-    for i, x in enumerate(xs):
-        parts = ([lefts[i]] if lefts else []) + [x] + (
-            [rights[i]] if rights else [])
-        out.append(torch.cat(parts) if len(parts) > 1 else x)
-    return out
-
-
 def _exchange_planes(xs, plane: int, hl: int, hr: int):
     """Per shard ``[left strip | x | right strip]``, non-circular: shards
     with no neighbour (the global ends) receive zeros."""
     d = len(xs)
     nl, nr = hl * plane, hr * plane
-    lefts = [xs[i - 1][xs[i - 1].numel() - nl:] if i > 0
-             else xs[0].new_zeros(nl) for i in range(d)] if nl else None
-    rights = [xs[i + 1][:nr] if i < d - 1 else xs[0].new_zeros(nr)
-              for i in range(d)] if nr else None
-    return _windows(xs, lefts, rights)
+    out = []
+    for i, x in enumerate(xs):
+        parts = [x]
+        if nl:
+            parts.insert(0, xs[i - 1][x.numel() - nl:] if i > 0
+                         else x.new_zeros(nl))
+        if nr:
+            parts.append(xs[i + 1][:nr] if i < d - 1 else x.new_zeros(nr))
+        out.append(torch.cat(parts) if len(parts) > 1 else x)
+    return out
 
 
 def _exchange_planes_remote(xs, plane: int, hl: int, hr: int):
-    """:func:`_exchange_planes` through the ``remote_halo`` kernel: one
-    circular launch for all shards, then the zero mask at shard 0's left and
-    shard d−1's right."""
-    d = len(xs)
-    if d == 1 or (hl == 0 and hr == 0):
+    """:func:`_exchange_planes` through the ``remote_halo`` kernel: every
+    shard's window, the global ends zero, in one launch."""
+    if len(xs) == 1 or (hl == 0 and hr == 0):
         return _exchange_planes(xs, plane, hl, hr)
-    nl, nr = hl * plane, hr * plane
-    lefts, rights = remote_halo(xs, nl, nr)
-    if nl:
-        lefts[0].zero_()
-    if nr:
-        rights[d - 1].zero_()
-    return _windows(xs, lefts if nl else None, rights if nr else None)
+    return list(remote_halo_window(xs, hl * plane, hr * plane).unbind(0))
 
 
 def slab_windows(op: SlabDia, xs, transport: str):

@@ -3,8 +3,8 @@ against its plain twin on the same CUDA tensors (``dia_spmv`` also over an
 x window and on both its vector and scalar paths, ``csr_spmv`` at every
 lane width on rows of 0 to 200 nonzeros, ``const_stencil`` on ragged,
 one-plane, one-line, interior-block and unaligned grids at any z-chunk,
-``panel_spmm`` on both of its instances, ``remote_halo``
-exactly), and the GPU solves' iteration counts
+``panel_spmm`` on both of its instances, ``remote_halo``'s windows
+exactly on both of its paths), and the GPU solves' iteration counts
 (PMIS, PMIS with the probed Galerkin values, structured, and structured on
 a 4-shard mesh; and with the Chebyshev and l1-Jacobi smoothers, the W and F
 cycles, the ``inv`` coarse solve, the pipelined PCG and the device
@@ -230,22 +230,46 @@ def test_dia_kernel_window_matches_twin(hier, mode):
     _check(got, dia_spmv.dia_spmv_plain(a, x, mode, b, s, x_base=base), 0.0)
 
 
+@pytest.mark.parametrize("source", ["fresh", "chunks", "offset"])
 @pytest.mark.parametrize("d,n,nl,nr", [(4, 131072, 16384, 16384),
                                        (3, 1000, 100, 0), (8, 4096, 0, 512),
-                                       (64, 640, 64, 64)])
-def test_remote_halo_exact(d, n, nl, nr):
+                                       (64, 640, 64, 64), (5, 1001, 7, 3)])
+def test_remote_halo_exact(d, n, nl, nr, source):
+    """The window kernel bitwise its twin on fresh shards, on chunk views of
+    one vector (as ``ShardMesh.shard`` gives them) and on chunk views one
+    float off a 16-byte boundary; the wrapper's path, and the scalar path
+    forced through the C entry point."""
     _need_cuda()
+    from omp_amg_tpu_torch._build import cuda_kernels
+
     rng = np.random.default_rng(8)
-    srcs = [_vec(rng, n) for _ in range(d)]
-    before = remote_halo.launches
-    left, right = remote_halo.remote_halo(srcs, nl, nr)
-    assert remote_halo.launches == before + 1
-    want_l, want_r = remote_halo.remote_halo_plain(srcs, nl, nr)
+    if source == "fresh":
+        srcs = [_vec(rng, n) for _ in range(d)]
+    else:
+        flat = _vec(rng, d * n + 1)
+        srcs = list((flat[:-1] if source == "chunks" else flat[1:]).chunk(d))
+    vec = remote_halo.vector_path(srcs, n, nl, nr)
+    assert vec == (n % 4 == 0 and source != "offset")
+    before = (remote_halo.launches, remote_halo.scalar_launches)
+    got = remote_halo.remote_halo_window(srcs, nl, nr)
+    assert (remote_halo.launches, remote_halo.scalar_launches) == (
+        before[0] + 1, before[1] + (not vec))
+    want = remote_halo.remote_halo_window_plain(srcs, nl, nr)
     torch.cuda.synchronize()
-    assert all(torch.equal(u, v) for u, v in zip(left, want_l))
-    assert all(torch.equal(u, v) for u, v in zip(right, want_r))
+    assert torch.equal(got, want)
+    table = remote_halo._Table(*(t.data_ptr() for t in srcs))
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(want)
+    lib = cuda_kernels()
+    assert lib.remote_halo_window_launch(d, n, nl, nr, out.shape[1], 0, table,
+                                         out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    if not vec:    # the vector path refuses what it cannot take
+        assert lib.remote_halo_window_launch(
+            d, n, nl, nr, out.shape[1], 1, table, out.data_ptr(), stream) != 0
     with pytest.raises(ValueError):
-        remote_halo.remote_halo(srcs + [srcs[0]] * (65 - d), 1, 1)
+        remote_halo.remote_halo_window(srcs + [srcs[0]] * (65 - d), 1, 1)
 
 
 def test_sharded_solve_matches_cpu_iterations():
