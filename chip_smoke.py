@@ -150,6 +150,7 @@ REFRESH_BOUND = 2e-6    # refreshed against fresh values (f32 roundoff)
 REFRESH_SOLVER_N = 128  # the facade's ×1.7 refresh on the 7-point path
 CLI_N = 128             # the CLI's generated problems
 CLI_MATRIX_N = 64       # the CLI's MatrixMarket file: poisson3d_7pt(64)
+STEP0_N = 24            # the f64-certificate check: 24³ × 1.7
 # published peaks (NVIDIA data sheets): memory bytes/s and f32 FLOP/s
 # outside the tensor cores, by card name; the first match wins
 PEAKS = (("H200", 4.8e12, 67e12, "H200 SXM"),
@@ -407,7 +408,7 @@ def csr_width_times(name, a, x, flush):
 
     def call(vec):
         rc = lib.csr_spmv_launch(
-            0, 0, vec, a.n_rows, a.indptr.data_ptr(), a.indices.data_ptr(),
+            0, 0, vec, a.n_rows, 0, a.indptr.data_ptr(), a.indices.data_ptr(),
             a.vals.data_ptr(), x.data_ptr(), None, None, None,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
@@ -932,6 +933,37 @@ def profile_solve(label, solver, b, top=8, **solve_kw):
               f"name={e.key[:90]}", flush=True)
 
 
+def halo_row(tag, srcs, nl, nr, flush):
+    """``remote_halo_window`` on the shards ``srcs`` with halo widths
+    ``nl``, ``nr``: its path held against the launch counters, then
+    kernel against twin, with one ``torch.cat`` of the windows' parts (the
+    two zero strips made beforehand) as the library yardstick. The row's
+    name ends in the path taken."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import remote_halo as rh
+
+    d, n_loc = len(srcs), srcs[0].numel()
+    vec = rh.vector_path(srcs, n_loc, nl, nr)
+    name = (f"remote_halo:{tag}:d={d}:n_loc={n_loc}:nl={nl}:nr={nr}:"
+            f"path={'vector' if vec else 'scalar'}")
+
+    def window():
+        return rh.remote_halo_window(srcs, nl, nr)
+    expect_path(rh, name, window, vec)
+    parts = []
+    for i, x in enumerate(srcs):
+        parts += [srcs[i - 1][n_loc - nl:] if i else x.new_zeros(nl), x,
+                  srcs[i + 1][:nr] if i < d - 1 else x.new_zeros(nr)]
+    # bytes: every window written, every part read but the zero strips
+    nbytes = 4 * d * (nl + n_loc + nr) + 4 * (d * n_loc + (d - 1) * (nl + nr))
+    return compare(name, window,
+                   lambda: rh.remote_halo_window_plain(srcs, nl, nr),
+                   HALO_BOUND, nbytes, flush,
+                   library=lambda: torch.cat(parts),
+                   flat=lambda w: w.reshape(-1))
+
+
 def sharded_path(n, counters, flush, rng):
     """Phase 10: the z-slab distributed path (module docstring); returns
     (launches of its main-path run, that run, kernel rows)."""
@@ -939,7 +971,6 @@ def sharded_path(n, counters, flush, rng):
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops import dia_spmv
-    from omp_amg_tpu_torch.ops import remote_halo as rh
     from omp_amg_tpu_torch.parallel.dist import dist_vcycle
     from omp_amg_tpu_torch.parallel.slab import (
         _exchange_planes, _exchange_planes_remote,
@@ -1005,29 +1036,9 @@ def sharded_path(n, counters, flush, rng):
     for tag, d, n_loc, plane, hl, hr in shapes:
         srcs = [_vec(rng, n_loc, "cuda") for _ in range(d)]
         nl, nr = hl * plane, hr * plane
-        vec = rh.vector_path(srcs, n_loc, nl, nr)
-        path = "vector" if vec else "scalar"
-        name = (f"remote_halo:{tag}:d={d}:n_loc={n_loc}:nl={nl}:nr={nr}:"
-                f"path={path}")
-        window = (lambda srcs=srcs, nl=nl, nr=nr:
-                  rh.remote_halo_window(srcs, nl, nr))
-        expect_path(rh, name, window, vec)
-        # the library yardstick: one torch.cat of the windows' parts, the
-        # two zero strips made beforehand
-        parts = []
-        for i, x in enumerate(srcs):
-            parts += [srcs[i - 1][n_loc - nl:] if i else x.new_zeros(nl), x,
-                      srcs[i + 1][:nr] if i < d - 1 else x.new_zeros(nr)]
-        # bytes: every window written, every part read but the zero strips
-        nbytes = 4 * d * (nl + n_loc + nr) + 4 * (d * n_loc
-                                                  + (d - 1) * (nl + nr))
-        row = compare(name, window,
-                      lambda: rh.remote_halo_window_plain(srcs, nl, nr),
-                      HALO_BOUND, nbytes, flush,
-                      library=lambda parts=parts: torch.cat(parts),
-                      flat=lambda w: w.reshape(-1))
+        row = halo_row(tag, srcs, nl, nr, flush)
         rows["remote_halo"].append(row)
-        del parts
+        name, path = row["name"], row["name"].rsplit("=", 1)[1]
         got = _exchange_planes_remote(srcs, plane, hl, hr)
         want = _exchange_planes(srcs, plane, hl, hr)
         torch.cuda.synchronize()
@@ -1723,6 +1734,283 @@ def cli_paths(counters):
     return paths
 
 
+def pmis_window_checks(dh, rng, flush):
+    """Phase 13a's kernel rows: ``csr_spmv`` on shard 1 of the sharded
+    PMIS hierarchy's L0 and L1 A, over its exchanged window (spmv,
+    residual, jacobi with ``x_base``), and ``remote_halo_window`` at their
+    halo widths (h = one 128² plane at L0, an odd width at L1: the scalar
+    path). Returns rows per kernel."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import csr_spmv
+    from omp_amg_tpu_torch.parallel.dist import DistOp, _windows
+
+    rows = {"csr_spmv": [], "remote_halo": []}
+    for l in (0, 1):
+        lv = dh.levels[l]
+        op = lv.a
+        if not (isinstance(op, DistOp) and op.mode == "halo"):
+            raise AssertionError(f"pmis mesh L{l}: A is not in halo mode")
+        xs = [_vec(rng, op.m_in, "cuda") for _ in op.blocks]
+        rows["remote_halo"].append(halo_row(f"PM-L{l}", xs, op.halo,
+                                            op.halo, flush))
+        # csr_spmv on shard 1's window
+        w, base = _windows(op, xs)[1]
+        blk, s1 = op.blocks[1], lv.s[1]
+        if w.numel() >= 1 << 31:
+            raise AssertionError("window beyond int32 columns")
+        nr = blk.n_rows
+        b1 = _vec(rng, nr, "cuda")
+        csr = library_csr(blk.indptr, blk.indices, blk.vals, blk.shape)
+        cb = (blk.nnz * (4 + blk.vals.element_size()) + 8 * (nr + 1)
+              + 4 * w.numel() + 4 * nr)
+        cases = {
+            "spmv": (lambda: csr_spmv.spmv(blk, w),
+                     lambda: csr_spmv.csr_spmv_plain(blk, w), cb,
+                     library_spmv(csr, w)),
+            "residual": (lambda: csr_spmv.residual(blk, w, b1),
+                         lambda: csr_spmv.csr_spmv_plain(blk, w, "residual",
+                                                         b=b1),
+                         cb + 4 * nr, library_addmm(csr, w, b1, -1)),
+            "jacobi": (lambda: csr_spmv.jacobi(blk, w, b1, s1, x_base=base),
+                       lambda: csr_spmv.csr_spmv_plain(
+                           blk, w, "jacobi", b=b1, s=s1, x_base=base),
+                       cb + 8 * nr, None),
+        }
+        vt = "bf16" if blk.vals.dtype == torch.bfloat16 else "f32"
+        for mode, (kern, plain, nbytes, library) in cases.items():
+            rows["csr_spmv"].append(compare(
+                f"csr_spmv:PM-L{l}-A-shard1:{vt}:window-{mode}:rows={nr}:"
+                f"nnz={blk.nnz}:x_len={w.numel()}:h={op.halo}:V={blk.vec}",
+                kern,
+                plain, CSR_BOUND, nbytes, flush, library=library,
+                flops=2 * blk.nnz))
+        del csr, xs, w
+    return rows
+
+
+def certified_counts(dh, mesh, a, b):
+    """The certified solve of ``b`` on a sharded hierarchy through
+    ``make_dist_ir_solver``, against the f64 operator ``a``. Returns (inner
+    counts, outer count, certified rel, x)."""
+    from omp_amg_tpu_torch.parallel.dist_ir import (
+        fine_f64, make_dist_ir_solver,
+    )
+    from omp_amg_tpu_torch.parallel.partition import pad_vector
+
+    b64 = b.numpy().astype(np.float64)
+    res = make_dist_ir_solver(mesh, dh, fine_f64(a, dh, mesh.device),
+                              tol=1e-8, maxiter=500)(
+        dh, pad_vector(b64, dh, mesh.size))
+    return (list(res.inner_iters), res.outer_iters, res.rel_residual,
+            res.x[:a.n_rows])
+
+
+def pmis_mesh_path(n, counters, flush, rng):
+    """Phase 13: the row-sharded PMIS path on one card (module docstring).
+    Returns ({path: launches}, the 13a run, kernel rows)."""
+    import warnings
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.amg import host_setup as hs
+    from omp_amg_tpu_torch.ops import csr_spmv, remote_halo
+    from omp_amg_tpu_torch.parallel.partition import (
+        partition_hierarchy, place_hierarchy, with_transport,
+    )
+
+    pmis = amg.AMGParams(coarsening="pmis")
+    paths = {}
+
+    def scaled(a, s):
+        return amg.Dia(data=a.data * s, offsets=a.offsets, dims=a.dims)
+
+    def precondition(solver, r):
+        return solver.precondition(r)
+
+    # 13a: the main path
+    a = amg.poisson3d_7pt(n)
+    b = amg.default_rhs(a, seed=SEED)
+    mesh = amg.ShardMesh(SHARDS, "cuda")
+    label = f"pmis mesh d={SHARDS} remote n={n}^3"
+    solver, launches, run = drive(label, a, pmis, None, counters,
+                                  vcycle=precondition, mesh=mesh,
+                                  transport="remote", refreshable=True)
+    expect_launches(label, launches, ("csr_spmv", "remote_halo"))
+    paths["pmis_mesh"] = launches
+    dh = solver.hierarchy
+    print(f"{label} stats={solver.stats()} modes="
+          f"{[getattr(lv.a, 'mode', 'replicated') for lv in dh.levels]} "
+          f"halos={[getattr(lv.a, 'halo', 0) for lv in dh.levels]} "
+          f"remote_halo_scalar_launches={run['scalar']['remote_halo']} of "
+          f"{launches['remote_halo']}", flush=True)
+    info = run["info"]
+    reset_counters(counters)
+    solver.solve(b, tol=1e-8)
+    torch.cuda.synchronize()
+    per = {"csr_spmv": csr_spmv.launches,
+           "remote_halo": remote_halo.launches}
+    iters = sum(solver.last_info["inner_iters"])
+    print(f"{label} launches per warm solve ({iters} PCG iterations, "
+          f"{solver.last_info['outer_iters']} outer): csr_spmv="
+          f"{per['csr_spmv']} remote_halo={per['remote_halo']} "
+          f"(scalar path {remote_halo.scalar_launches})", flush=True)
+    profile_solve(label, solver, b)
+    rows = pmis_window_checks(dh, rng, flush)
+
+    # 13b: parity. The ppermute transport on the same hierarchy: bitwise
+    got = certified_counts(with_transport(dh, "ppermute"), mesh, a, b)
+    if not np.array_equal(got[3], run["x"]) or (got[0], got[1]) != (
+            info["inner_iters"], info["outer_iters"]):
+        raise AssertionError("pmis mesh: the ppermute solve differs from "
+                             "the remote one")
+    print(f"{label} ppermute == remote: x bitwise equal, inner {got[0]} "
+          f"outer {got[1]}", flush=True)
+
+    # 13c: the distributed refresh on the 13a solver, ×2.0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        solver.refresh(scaled(a, 2.0))
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    tripped = [str(w.message) for w in caught
+               if "pattern guard" in str(w.message)]
+    x2 = solver.solve(b, tol=1e-8)
+    ri = dict(solver.last_info)
+    b64 = b.numpy().astype(np.float64)
+    rel2 = float(np.linalg.norm(b64 - amg.dia_to_scipy(scaled(a, 2.0)) @ x2)
+                 / np.linalg.norm(b64))
+    del solver
+    t0 = time.perf_counter()
+    fresh = amg.AMGSolver(scaled(a, 2.0), pmis, mesh=mesh, device="cuda",
+                          transport="remote")
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    fresh.solve(b, tol=1e-8)
+    fi = fresh.last_info
+    print(f"pmis mesh refresh x2.0 n={n}^3 setup_s={run['setup_s']:.3f} "
+          f"refresh_s={refresh_s:.3f} fresh_setup_s={fresh_s:.3f} inner="
+          f"{ri['inner_iters']} outer={ri['outer_iters']} certified="
+          f"{ri['rel_residual']:.3e} scipy={rel2:.3e} | fresh inner="
+          f"{fi['inner_iters']} outer={fi['outer_iters']} | pattern guard "
+          f"warnings={tripped}", flush=True)
+    check_certified("pmis mesh refresh x2.0", ri, rel2)
+    if tripped:
+        raise AssertionError("pmis mesh refresh x2.0 fell back to a setup")
+    if (ri["inner_iters"], ri["outer_iters"]) != (fi["inner_iters"],
+                                                  fi["outer_iters"]):
+        raise AssertionError("pmis mesh refresh x2.0: counts differ from "
+                             "a fresh solver's")
+    del fresh
+
+    # 13b (continued) at PARITY_N³: keep_host bitwise on 1, 2, 4 shards,
+    # the certified counts of 1, 2, 4 shards and of the central route
+    n2 = PARITY_N
+    a2 = amg.poisson3d_7pt(n2)
+    b2 = amg.default_rhs(a2, seed=SEED)
+    hosts, counts = {}, {}
+    for d in (1, 2, SHARDS):
+        m = amg.ShardMesh(d, "cuda")
+        dh_d, hosts[d] = amg.dist_pmis_setup(a2, d, pmis, mesh=m,
+                                             transport="remote",
+                                             keep_host=True)
+        counts[d] = certified_counts(dh_d, m, a2, b2)[:3]
+        del dh_d
+    for d in (2, SHARDS):
+        for l, (u, v) in enumerate(zip(hosts[1].levels, hosts[d].levels)):
+            for key in ("a", "p", "r"):
+                if not all(np.array_equal(x, y)
+                           for x, y in zip(u[key][:2], v[key][:2])):
+                    raise AssertionError(f"pmis mesh keep_host: L{l} {key} "
+                                         f"differs between 1 and {d} shards")
+            if not (np.array_equal(u["dinv"], v["dinv"])
+                    and u["lmax"] == v["lmax"]
+                    and np.array_equal(u["state"], v["state"])):
+                raise AssertionError(f"pmis mesh keep_host: L{l} differs "
+                                     f"between 1 and {d} shards")
+        if not all(np.array_equal(u.data, v.data)
+                   for u, v in zip(hosts[1].ops, hosts[d].ops)):
+            raise AssertionError(f"pmis mesh keep_host: A_c differs between "
+                                 f"1 and {d} shards")
+    print(f"pmis mesh n={n2}^3 keep_host hierarchy bitwise equal on 1, 2 "
+          f"and {SHARDS} shards ({len(hosts[1].levels)} levels)", flush=True)
+    del hosts
+    hier = amg.amg_setup(a2, pmis, device="cuda")
+    dh_c = place_hierarchy(partition_hierarchy(hier, SHARDS,
+                                               transport="remote"), mesh)
+    del hier
+    counts["central"] = certified_counts(dh_c, mesh, a2, b2)[:3]
+    del dh_c
+    print(f"pmis mesh n={n2}^3 certified counts: " + " ".join(
+        f"{k}: inner={v[0]} outer={v[1]} rel={v[2]:.3e}"
+        for k, v in counts.items()), flush=True)
+    first = counts[1][:2]
+    for k, v in counts.items():
+        if v[:2] != first or v[2] > 1e-8:
+            raise AssertionError(f"pmis mesh n={n2}^3: {k}'s counts differ "
+                                 "from 1 shard's")
+    # 13c (continued): the non-dyadic ×1.7 refresh with its tie repair
+    repaired = []
+    real = hs.extpi_pinned_rows
+
+    def counting(*args):
+        repaired.append(len(args[6]))
+        return real(*args)
+    s = amg.AMGSolver(a2, pmis, mesh=mesh, device="cuda",
+                      transport="remote", refreshable=True)
+    hs.extpi_pinned_rows = counting
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            s.refresh(scaled(a2, 1.7))
+    finally:
+        hs.extpi_pinned_rows = real
+    x17 = s.solve(b2, tol=1e-8)
+    b2_64 = b2.numpy().astype(np.float64)
+    rel17 = float(np.linalg.norm(
+        b2_64 - amg.dia_to_scipy(scaled(a2, 1.7)) @ x17)
+        / np.linalg.norm(b2_64))
+    tripped = [str(w.message) for w in caught
+               if "pattern guard" in str(w.message)]
+    print(f"pmis mesh refresh x1.7 n={n2}^3 repaired_rows={repaired} "
+          f"inner={s.last_info['inner_iters']} "
+          f"outer={s.last_info['outer_iters']} certified="
+          f"{s.last_info['rel_residual']:.3e} scipy={rel17:.3e} pattern "
+          f"guard warnings={tripped}", flush=True)
+    check_certified("pmis mesh refresh x1.7", s.last_info, rel17)
+    if tripped or not repaired:
+        raise AssertionError("pmis mesh refresh x1.7: no tie repair, or a "
+                             "fallback to a fresh setup")
+    del s
+    # the GPU/CPU iteration parity of the path
+    parity(f"pmis mesh d={SHARDS} n={SHARD_PARITY_N}^3",
+           amg.poisson3d_7pt(SHARD_PARITY_N), pmis, None, shards=SHARDS,
+           transport="remote", agg_rows_per_dev=512)
+
+    # 13d: the certified residual is the user's f64 operator's
+    n3 = STEP0_N
+    a3 = scaled(amg.poisson3d_7pt(n3), 1.7)
+    b3 = amg.default_rhs(a3, seed=SEED)
+    b3_64 = b3.numpy().astype(np.float64)
+    for tag, kw in (("z-slab", dict(params=amg.AMGParams(),
+                                    grid=(n3,) * 3)),
+                    ("pmis", dict(params=pmis, agg_rows_per_dev=512))):
+        s = amg.AMGSolver(a3, mesh=mesh, device="cuda", transport="remote",
+                          **kw)
+        x = s.solve(b3, tol=1e-8)
+        rel = float(np.linalg.norm(b3_64 - amg.dia_to_scipy(a3) @ x)
+                    / np.linalg.norm(b3_64))
+        print(f"f64 certificate {tag} n={n3}^3 x1.7: certified="
+              f"{s.last_info['rel_residual']:.3e} scipy={rel:.3e} inner="
+              f"{s.last_info['inner_iters']} outer="
+              f"{s.last_info['outer_iters']}", flush=True)
+        check_certified(f"f64 certificate {tag}", s.last_info, rel)
+        del s
+    return paths, run, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=128,
@@ -1903,6 +2191,12 @@ def main() -> int:
     refresh_launches = refresh_paths(counters)
     cli_launches = cli_paths(counters)
 
+    # phase 13: the row-sharded PMIS path on one card
+    pm_launches, pm_run, pm_rows = pmis_mesh_path(args.n, counters, flush,
+                                                  rng)
+    for name, more in pm_rows.items():
+        rows[name] += more
+
     if any(m.startswith(("jax", "omp_amg_tpu.")) or m == "omp_amg_tpu"
            for m in sys.modules):
         raise AssertionError("the JAX package was imported")
@@ -1910,7 +2204,8 @@ def main() -> int:
     paths = {"pmis": pmis_launches, "pmis_probe": probe_launches,
              "structured_3d": s3_launches, "structured_2d": s2_launches,
              "sharded_3d": sh_launches, **cheby_paths, **option_launches,
-             **sharded_launches, **refresh_launches, **cli_launches}
+             **sharded_launches, **refresh_launches, **cli_launches,
+             **pm_launches}
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     print("main-path launches: " + " ".join(f"{k}={v}"
@@ -1918,7 +2213,7 @@ def main() -> int:
           flush=True)
     runs = {"pmis": host_run, "pmis_probe": probe_run,
             "structured_3d": s3_run, "structured_2d": s2_run,
-            "sharded_3d": sh_run}
+            "sharded_3d": sh_run, "pmis_mesh": pm_run}
     print("main-path dia_spmv launches, vector / scalar path: " + " ".join(
         f"{k}={paths[k]['dia_spmv'] - r['scalar']['dia_spmv']}/"
         f"{r['scalar']['dia_spmv']}" for k, r in runs.items()), flush=True)

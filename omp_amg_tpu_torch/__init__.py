@@ -17,7 +17,13 @@ through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
   :mod:`.parallel`): per-shard setup, sharded V-cycle and PCG, the f64
   certified outer loop; every shard-local product is one ``dia_spmv.cu``
   launch over its exchanged window, and ``transport="remote"`` writes the
-  windows of all shards, halos included, in one ``remote_halo.cu`` launch.
+  windows of all shards, halos included, in one ``remote_halo.cu`` launch;
+- the classical path distributed by row blocks (``AMGParams(coarsening=
+  "pmis")`` with ``mesh=``): the per-shard PMIS setup
+  (``dist_pmis_setup``, with the value-only ``dist_pmis_refresh``), every
+  shard's rows one ``csr_spmv.cu`` launch over its exchanged window, the
+  windows again one ``remote_halo.cu`` launch under ``transport=
+  "remote"``.
 
 Every smoother (weighted and l1 Jacobi, Chebyshev), cycle (V, W, F),
 coarse solve (Cholesky, inverse) and PCG variant (standard, pipelined) of
@@ -49,6 +55,9 @@ from .amg.smoothers import chebyshev, estimate_lmax  # noqa: F401
 from .amg.structured import GridProlong, GridRestrict  # noqa: F401
 from .amg.vcycle import vcycle  # noqa: F401
 from .interop import dist_hierarchy_from_numpy, hierarchy_from_numpy  # noqa: F401
+from .parallel.dist_pmis_setup import (  # noqa: F401
+    DistSetupCache, dist_pmis_refresh, dist_pmis_setup,
+)
 from .parallel.mesh import ShardMesh  # noqa: F401
 from .problems.poisson import (  # noqa: F401
     aniso2d_9pt, default_rhs, poisson2d_5pt, poisson3d_7pt, poisson3d_27pt,

@@ -9,6 +9,12 @@
 //   mode 2  correct   out = v + A·x            (x + P·xc: x = xc, v = x)
 //   mode 3  jacobi    out = x + s ⊙ (b − A·x)  (s = ω·D⁻¹ per row)
 //
+// x may be a window longer than the operator's rows (a shard of the
+// row-sharded PMIS path reads [left halo | own rows | right halo]): the
+// column indices address the window, and jacobi reads row i's own x at
+// x[x_base + i]. x_base = 0 over a square operator is the single-device
+// product.
+//
 // Values are f32 or bf16 (converted with __bfloat162float); x, v, b, s and
 // out are f32, and every row sums in f32.
 //
@@ -64,7 +70,7 @@ __device__ __forceinline__ float load_val(const __nv_bfloat16* p, int64_t j) {
 
 template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads) csr_spmv_kernel(
-    int64_t n_rows, const int64_t* __restrict__ indptr,
+    int64_t n_rows, int64_t x_base, const int64_t* __restrict__ indptr,
     const int32_t* __restrict__ indices, const T* __restrict__ vals,
     const float* __restrict__ x, const float* __restrict__ v,
     const float* __restrict__ b, const float* __restrict__ s,
@@ -112,13 +118,15 @@ __global__ void __launch_bounds__(kThreads) csr_spmv_kernel(
   } else if constexpr (MODE == 2) {
     y = __fadd_rn(v[row], acc);
   } else if constexpr (MODE == 3) {
-    y = __fadd_rn(x[row], __fmul_rn(s[row], __fsub_rn(b[row], acc)));
+    y = __fadd_rn(x[x_base + row],
+                  __fmul_rn(s[row], __fsub_rn(b[row], acc)));
   }
   out[row] = y;
 }
 
 template <typename T, int V>
-cudaError_t launch_v(int mode, int64_t n_rows, const int64_t* indptr,
+cudaError_t launch_v(int mode, int64_t n_rows, int64_t x_base,
+                     const int64_t* indptr,
                      const int32_t* indices, const T* vals, const float* x,
                      const float* v, const float* b, const float* s,
                      float* out, cudaStream_t stream) {
@@ -129,19 +137,19 @@ cudaError_t launch_v(int mode, int64_t n_rows, const int64_t* indptr,
   switch (mode) {
     case 0:
       csr_spmv_kernel<T, 0, V><<<grid, kThreads, 0, stream>>>(
-          n_rows, indptr, indices, vals, x, v, b, s, out);
+          n_rows, x_base, indptr, indices, vals, x, v, b, s, out);
       break;
     case 1:
       csr_spmv_kernel<T, 1, V><<<grid, kThreads, 0, stream>>>(
-          n_rows, indptr, indices, vals, x, v, b, s, out);
+          n_rows, x_base, indptr, indices, vals, x, v, b, s, out);
       break;
     case 2:
       csr_spmv_kernel<T, 2, V><<<grid, kThreads, 0, stream>>>(
-          n_rows, indptr, indices, vals, x, v, b, s, out);
+          n_rows, x_base, indptr, indices, vals, x, v, b, s, out);
       break;
     case 3:
       csr_spmv_kernel<T, 3, V><<<grid, kThreads, 0, stream>>>(
-          n_rows, indptr, indices, vals, x, v, b, s, out);
+          n_rows, x_base, indptr, indices, vals, x, v, b, s, out);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -150,29 +158,30 @@ cudaError_t launch_v(int mode, int64_t n_rows, const int64_t* indptr,
 }
 
 template <typename T>
-cudaError_t launch(int mode, int vec, int64_t n_rows, const int64_t* indptr,
-                   const int32_t* indices, const T* vals, const float* x,
+cudaError_t launch(int mode, int vec, int64_t n_rows, int64_t x_base,
+                   const int64_t* indptr, const int32_t* indices,
+                   const T* vals, const float* x,
                    const float* v, const float* b, const float* s, float* out,
                    cudaStream_t stream) {
   switch (vec) {
     case 1:
-      return launch_v<T, 1>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                            out, stream);
+      return launch_v<T, 1>(mode, n_rows, x_base, indptr, indices, vals, x,
+                            v, b, s, out, stream);
     case 2:
-      return launch_v<T, 2>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                            out, stream);
+      return launch_v<T, 2>(mode, n_rows, x_base, indptr, indices, vals, x,
+                            v, b, s, out, stream);
     case 4:
-      return launch_v<T, 4>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                            out, stream);
+      return launch_v<T, 4>(mode, n_rows, x_base, indptr, indices, vals, x,
+                            v, b, s, out, stream);
     case 8:
-      return launch_v<T, 8>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                            out, stream);
+      return launch_v<T, 8>(mode, n_rows, x_base, indptr, indices, vals, x,
+                            v, b, s, out, stream);
     case 16:
-      return launch_v<T, 16>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                             out, stream);
+      return launch_v<T, 16>(mode, n_rows, x_base, indptr, indices, vals, x,
+                             v, b, s, out, stream);
     case 32:
-      return launch_v<T, 32>(mode, n_rows, indptr, indices, vals, x, v, b, s,
-                             out, stream);
+      return launch_v<T, 32>(mode, n_rows, x_base, indptr, indices, vals, x,
+                             v, b, s, out, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -181,11 +190,13 @@ cudaError_t launch(int mode, int vec, int64_t n_rows, const int64_t* indptr,
 }  // namespace
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// `vec` is the lanes per row, a power of two from 1 to 32. Pointers the
-// mode does not read may be null.
+// `vec` is the lanes per row, a power of two from 1 to 32; `x_base` the
+// position of row 0's own x in x (jacobi only). Pointers the mode does not
+// read may be null.
 extern "C" int csr_spmv_launch(int mode, int val_bf16, int vec,
-                               int64_t n_rows, const void* indptr,
-                               const void* indices, const void* vals,
+                               int64_t n_rows, int64_t x_base,
+                               const void* indptr, const void* indices,
+                               const void* vals,
                                const void* x, const void* v, const void* b,
                                const void* s, void* out, void* stream) {
   if (n_rows <= 0) return 0;
@@ -199,12 +210,12 @@ extern "C" int csr_spmv_launch(int mode, int val_bf16, int vec,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (val_bf16) {
-    err = launch(mode, vec, n_rows, ip, ix,
+    err = launch(mode, vec, n_rows, x_base, ip, ix,
                  static_cast<const __nv_bfloat16*>(vals), xf, vf, bf, sf, of,
                  st);
   } else {
-    err = launch(mode, vec, n_rows, ip, ix, static_cast<const float*>(vals),
-                 xf, vf, bf, sf, of, st);
+    err = launch(mode, vec, n_rows, x_base, ip, ix,
+                 static_cast<const float*>(vals), xf, vf, bf, sf, of, st);
   }
   return static_cast<int>(err);
 }

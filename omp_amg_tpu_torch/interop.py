@@ -7,8 +7,8 @@ or with ``coarse_solver="inv"`` the inverse) and the parameters. ``s`` and
 the device ``dinv`` take the forms the port's setup gives them (one float
 on a ``ConstDia`` level where they are constant). ELL padding (col 0,
 val 0) is dropped on the way to CSR; each row keeps its slot order.
-``dist_hierarchy_from_numpy`` does the same for a z-slab distributed
-hierarchy, onto a ``ShardMesh``.
+``dist_hierarchy_from_numpy`` does the same for a distributed hierarchy
+(the z-slab family or the row-sharded ELL family), onto a ``ShardMesh``.
 """
 
 from __future__ import annotations
@@ -88,13 +88,41 @@ def hierarchy_from_numpy(levels, coarse_chol, params,
     return Hierarchy(levels=tuple(out), coarse_chol=chol, params=params)
 
 
+def _dist_ell_level(lv, params, ndev: int, transport: str):
+    """One level of the row-sharded ELL family (host arrays, unplaced)."""
+    from .amg.hierarchy import jacobi_scale
+    from .parallel.dist import DistLevel
+    from .parallel.partition import HostEll, dist_op_from_planes
+
+    def op(spec, rows_sharded):
+        if spec is None:
+            return None
+        col = np.asarray(spec["col"], np.int32)
+        val = np.asarray(spec["val"], np.float32)
+        if not rows_sharded:
+            return HostEll(col=col, val=val, n_cols=int(spec["n_in_real"]))
+        return dist_op_from_planes(
+            col, val, ndev=ndev, mode=spec["mode"], halo=int(spec["halo"]),
+            m_in=int(spec["m_in"]), n_in_real=int(spec["n_in_real"]),
+            transport=transport)
+
+    dinv = np.asarray(lv["dinv"], np.float32)
+    lmax = float(np.float32(lv["lmax"]))
+    return DistLevel(
+        a=op(lv["a"], lv["sharded"]), dinv=dinv,
+        p=op(lv["p"], lv["sharded"]), r=op(lv.get("r"), lv["next_sharded"]),
+        lmax=lmax, s=jacobi_scale(dinv, lmax, params),
+        sharded=bool(lv["sharded"]), next_sharded=bool(lv["next_sharded"]),
+        n_next=int(lv["n_next"]))
+
+
 def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
                               transport: str = "ppermute"):
-    """Port ``DistHierarchy`` (the z-slab distribution) from numpy arrays,
-    placed on ``mesh`` (a ``ShardMesh``).
+    """Port ``DistHierarchy`` from numpy arrays, placed on ``mesh`` (a
+    ``ShardMesh``), for either distributed family.
 
-    ``levels`` is a sequence of dicts, one per level, with ``sharded``,
-    ``dinv`` (global rows), ``lmax`` and ``grid`` =
+    The z-slab family: ``levels`` is a sequence of dicts, one per level,
+    with ``sharded``, ``dinv`` (global rows), ``lmax`` and ``grid`` =
     ``(fine_shape, coarse_shape, coarsened)``, and
 
     - a sharded level: the global DIA planes ``a_data`` ``(ndiag, n)``,
@@ -107,16 +135,32 @@ def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
     Sharded levels split into ``mesh.size`` row blocks (values in bf16 when
     that cast is lossless, else f32) and run ``transport``; replicated
     levels take the single-device forms of ``hierarchy_from_numpy``.
-    ``params`` is an ``AMGParams`` or any dataclass with the same fields.
+
+    The row-sharded ELL family (the reference's PMIS partition): each level
+    dict has ``sharded``, ``next_sharded``, ``n_next``, ``dinv`` (global
+    padded rows where sharded), ``lmax``, and the operators ``a``, ``p``
+    and ``r`` (``r`` None at the transition), each a dict of the global
+    padded ELL planes ``col`` and ``val``, ``mode`` (``"halo"``,
+    ``"gather"`` or ``"replicated"``), ``halo``, ``m_in`` and
+    ``n_in_real``, the columns in the mode's convention (as the
+    reference's ``DistOp`` holds them). ``params`` is an ``AMGParams`` or
+    any dataclass with the same fields.
     """
     from .amg.hierarchy import jacobi_scale
     from .parallel.dist import DistHierarchy, DistLevel
     from .parallel.dist_setup import _compact
-    from .parallel.partition import _split
+    from .parallel.partition import _split, place_hierarchy
     from .parallel.slab import SlabDia, SlabProlong, SlabRestrict
 
     params = _params(params)
     dev = mesh.device
+    if levels and isinstance(levels[0].get("a"), dict):
+        dh = DistHierarchy(
+            levels=tuple(_dist_ell_level(lv, params, mesh.size, transport)
+                         for lv in levels),
+            coarse_chol=torch.tensor(np.asarray(coarse_chol, np.float32)),
+            params=params)
+        return place_hierarchy(dh, mesh)
     out = []
     for lv in levels:
         fine, coarse, coarsened = lv["grid"]

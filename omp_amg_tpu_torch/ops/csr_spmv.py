@@ -8,6 +8,13 @@ Modes: spmv ``A·x``, residual ``b − A·x``, correct ``v + A·x`` (the coarse
 grid correction x + P·xc), jacobi ``x + s ⊙ (b − A·x)``. Values are f32 or
 bf16; vectors and results are f32; rows sum in f32.
 
+``x`` may be a window longer than the operator's columns need: a shard of
+the row-sharded PMIS path (:mod:`omp_amg_tpu_torch.parallel.dist`) holds
+its rows with columns local to its exchanged window ``[left halo | own rows
+| right halo]``, so ``a.n_cols`` is the window's length, and jacobi reads
+row i's own x at ``x[x_base + i]``. ``x_base = 0`` over a square operator
+is the single-device product.
+
 The kernel gives each row ``a.vec`` lanes (1 to 32, a power of two: the
 host rule :attr:`Csr.vec` on the operator's mean row length), so a warp
 serves 32 / ``a.vec`` rows. The wrapper always passes that width; only a
@@ -29,7 +36,7 @@ launches = 0         # kernel launches by the wrappers (CUDA only)
 
 
 def csr_spmv_plain(a: Csr, x: torch.Tensor, mode: str = "spmv", v=None,
-                   b=None, s=None) -> torch.Tensor:
+                   b=None, s=None, x_base: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of every kernel mode: products gathered per
     nonzero, then ``index_add_`` over the row ids, then the epilogue."""
     n = a.n_rows
@@ -44,7 +51,7 @@ def csr_spmv_plain(a: Csr, x: torch.Tensor, mode: str = "spmv", v=None,
     if mode == "correct":
         return v + y
     if mode == "jacobi":
-        return x + s * (b - y)
+        return x[x_base: x_base + n] + s * (b - y)
     return y
 
 
@@ -71,12 +78,16 @@ def _check(a: Csr, x, rowvecs):
             raise ValueError("CSR kernel operands must be contiguous")
 
 
-def _apply(a: Csr, x: torch.Tensor, mode: str, v=None, b=None, s=None):
-    if mode == "jacobi" and a.n_rows != a.n_cols:
-        raise ValueError("jacobi needs a square operator")
+def _apply(a: Csr, x: torch.Tensor, mode: str, v=None, b=None, s=None,
+           x_base: int = 0):
+    if mode == "jacobi" and not 0 <= x_base <= a.n_cols - a.n_rows:
+        raise ValueError(f"jacobi reads x[x_base + i] for the {a.n_rows} "
+                         f"rows: x_base={x_base} outside x of {a.n_cols}")
+    if mode != "jacobi" and x_base:
+        raise ValueError("x_base is the jacobi mode's")
     _check(a, x, tuple(t for t in (v, b, s) if t is not None))
     if x.device.type == "cpu":
-        return csr_spmv_plain(a, x, mode, v, b, s)
+        return csr_spmv_plain(a, x, mode, v, b, s, x_base)
     if x.device.type != "cuda":
         raise ValueError(f"no CSR kernel for device {x.device}")
     if x.device.index != torch.cuda.current_device():
@@ -92,7 +103,7 @@ def _apply(a: Csr, x: torch.Tensor, mode: str, v=None, b=None, s=None):
 
     rc = lib.csr_spmv_launch(
         _MODES[mode], int(a.vals.dtype == torch.bfloat16), a.vec, a.n_rows,
-        a.indptr.data_ptr(), a.indices.data_ptr(), a.vals.data_ptr(),
+        x_base, a.indptr.data_ptr(), a.indices.data_ptr(), a.vals.data_ptr(),
         x.data_ptr(), ptr(v), ptr(b), ptr(s), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -117,7 +128,8 @@ def correct(p: Csr, xc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _apply(p, xc, "correct", v=x)
 
 
-def jacobi(a: Csr, x: torch.Tensor, b: torch.Tensor,
-           s: torch.Tensor) -> torch.Tensor:
-    """x' = x + s ⊙ (b − A·x) in one pass (s = ω·D⁻¹); a fresh tensor."""
-    return _apply(a, x, "jacobi", b=b, s=s)
+def jacobi(a: Csr, x: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
+           x_base: int = 0) -> torch.Tensor:
+    """x' = x + s ⊙ (b − A·x) in one pass (s = ω·D⁻¹; row i's own x at
+    ``x[x_base + i]``); a fresh tensor of the operator's rows."""
+    return _apply(a, x, "jacobi", b=b, s=s, x_base=x_base)

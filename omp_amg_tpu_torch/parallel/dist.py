@@ -1,20 +1,43 @@
-"""Distributed hierarchy and sharded AMG-PCG, the structured subset
-(counterpart of ``omp_amg_tpu/parallel/dist.py``).
+"""Distributed hierarchy and sharded AMG-PCG (counterpart of
+``omp_amg_tpu/parallel/dist.py``).
 
-Levels whose vectors are sharded hold z-slab operators (:mod:`.slab`);
-levels below the agglomeration threshold are replicated: one full vector,
-the port's own single-device operators (``Dia``, ``ConstDia``, the grid
-transfers) and kernels. The shard→replicated transition restricts with
-``gather_out`` and prolongs with ``slice_in``. Global dots and norms are
-sums over the shards in shard order (:func:`.mesh.psum`), the only global
-sync points of PCG; the convergence check syncs once per iteration, as the
-single-device PCG does. The pipelined (single-reduction) PCG sums its three
-scalars over the shards at one point per iteration. The smoothers (Jacobi,
-l1-Jacobi, Chebyshev), the V, W and F cycles and both coarse solves are
-the single-device ones, applied per shard.
+Two operator families shard a level's rows over the mesh:
 
-The PMIS distribution (``DistOp``, halo/gather modes, the routed ELL
-branch) is not ported.
+- z-slab operators (:mod:`.slab`) for the structured path: per-shard DIA
+  blocks, plane exchanges, slab-local grid transfers;
+- the general-sparsity family of the classical (PMIS) path: a
+  :class:`DistOp` holds one ``Csr`` block per shard, its rows of the
+  (padded) operator, in one of three modes decided at partition time
+  (:mod:`.partition`):
+
+  - ``halo``: the columns are local to the shard's window ``[h left | m_in
+    own | h right]`` (the reference localises them the same way), so the
+    product is the window exchange (``transport``: plain strip copies,
+    ``"ppermute"``, or one ``remote_halo`` launch for every shard,
+    ``"remote"``) and one ``csr_spmv`` launch per shard. The reference's
+    exchange is circular and the port's zero-fills the global ends; no
+    valid column of shard 0 lies left of its block, nor one of the last
+    shard right of it, so the two agree;
+  - ``gather``: a halo wider than a block; the columns are global and the
+    window is every shard's block, concatenated;
+  - ``replicated``: the prolongation at the shard → replicated transition:
+    rows sharded, the input the full coarse vector, global columns; its
+    ``tblocks`` hold per shard the block of Pᵀ whose columns are that
+    shard's fine rows, so that the restriction is one ``csr_spmv`` launch
+    per shard and a shard-order sum (no scatter, no atomics).
+
+Levels below the agglomeration threshold are replicated: one full vector,
+the port's own single-device operators (``Csr`` or ``Dia``, ``ConstDia``,
+the grid transfers) and kernels. Global dots and norms are sums over the
+shards in shard order (:func:`.mesh.psum`), the only global sync points of
+PCG; the convergence check syncs once per iteration, as the single-device
+PCG does. The pipelined (single-reduction) PCG sums its three scalars over
+the shards at one point per iteration. The smoothers (Jacobi, l1-Jacobi,
+Chebyshev), the V, W and F cycles and both coarse solves are the
+single-device ones, applied per shard, on either family.
+
+The reference's routed-ELL plans and its interior/boundary row split are
+left out: every shard's rows run from its window in one ``csr_spmv`` pass.
 """
 
 from __future__ import annotations
@@ -28,26 +51,68 @@ import torch
 from ..amg.params import AMGParams
 from ..amg.smoothers import chebyshev_coeffs, jacobi_sweep
 from ..amg.vcycle import coarse_solve
+from ..ops import csr_spmv
 from ..ops import spmv as ops
 from ..solvers.cg import VARIANTS, CGResult
+from ..sparse.formats import Csr
 from .mesh import psum
 from .slab import (
-    SlabDia, SlabProlong, SlabRestrict, slab_apply, slab_prolong,
+    SlabDia, SlabProlong, SlabRestrict, _exchange_planes,
+    _exchange_planes_remote, check_transport, slab_apply, slab_prolong,
     slab_restrict,
 )
+
+MODES = ("halo", "gather", "replicated")
+
+
+@dataclass(frozen=True)
+class DistOp:
+    """A row-sharded general-sparsity operator: ``blocks`` holds one
+    ``Csr`` per shard, rows ``[i·m_out, (i+1)·m_out)`` of the operator
+    padded to ``d·m_out`` rows, its columns addressing the shard's window
+    (module docstring). Before ``partition.place_hierarchy`` the blocks are
+    host ``(col, val)`` ELL planes."""
+
+    blocks: tuple
+    mode: str                  # "halo" | "gather" | "replicated"
+    halo: int                  # strip width h (halo mode)
+    m_in: int                  # input rows per shard (padded)
+    n_in: int                  # global (padded) input length
+    n_in_real: int             # unpadded input length
+    transport: str = "ppermute"
+    tblocks: tuple = None      # replicated mode: per shard (its P rows)ᵀ
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode={self.mode!r}: one of {MODES}")
+        check_transport(self.transport)
+
+    @property
+    def n_rows(self) -> int:
+        """Global (padded) rows."""
+        return sum(_block_rows(b) for b in self.blocks)
+
+
+def _block_rows(b) -> int:
+    return b.n_rows if isinstance(b, Csr) else int(b[0].shape[0])
 
 
 @dataclass(frozen=True)
 class DistLevel:
-    a: object                  # SlabDia (sharded) or a replicated operator
+    a: object                  # SlabDia | DistOp (sharded) or a replicated
+                               # operator
     dinv: object               # per-shard list, one tensor, or a float on
                                # a ConstDia level, f32 (Chebyshev)
-    p: object                  # SlabProlong | GridProlong
-    r: object                  # SlabRestrict | GridRestrict
+    p: object                  # SlabProlong | GridProlong | DistOp | Csr
+    r: object                  # SlabRestrict | GridRestrict | DistOp | Csr;
+                               # None at a DistOp transition (Pᵀ is
+                               # ``p.tblocks``)
     lmax: float                # f32 value
     s: object                  # Jacobi scale ω·dinv: per-shard list, one
                                # tensor, or a float on a ConstDia level
     sharded: bool              # this level's vectors are sharded
+    next_sharded: bool = False  # level l + 1's vectors are sharded
+    n_next: int = 0            # level l + 1's (padded or full) length
 
 
 @dataclass(frozen=True)
@@ -59,7 +124,7 @@ class DistHierarchy:
     @property
     def nshards(self) -> int:
         for lv in self.levels:
-            if isinstance(lv.a, SlabDia):
+            if isinstance(lv.a, (SlabDia, DistOp)):
                 return len(lv.a.blocks)
         return 1
 
@@ -71,12 +136,54 @@ def _map(fn, *vs):
     return fn(*vs)
 
 
+def _windows(op: DistOp, xs):
+    """Per shard ``(window, x_base)``: the x its block's columns address,
+    and where its row 0's own x sits in it (jacobi)."""
+    if op.mode == "halo":
+        h = op.halo
+        if h == 0:
+            return [(x, 0) for x in xs]
+        exchange = (_exchange_planes_remote if op.transport == "remote"
+                    else _exchange_planes)
+        return [(w, h) for w in exchange(xs, 1, h, h)]
+    if op.mode == "gather":
+        xg = torch.cat(xs)
+        return [(xg, i * op.m_in) for i in range(len(xs))]
+    return [(xs, 0)] * len(op.blocks)    # the full (replicated) vector
+
+
+def dist_op_apply(op: DistOp, xs, mode: str = "spmv", bs=None, ss=None,
+                  vs=None):
+    """Per shard the ``csr_spmv`` mode (spmv ``A·x``, residual ``b − A·x``,
+    jacobi ``x + s ⊙ (b − A·x)``, correct ``v + A·x``) of its rows over its
+    window: one launch per shard, after the exchange of ``op.mode``."""
+    out = []
+    for i, (blk, (w, base)) in enumerate(zip(op.blocks, _windows(op, xs))):
+        if mode == "spmv":
+            out.append(csr_spmv.spmv(blk, w))
+        elif mode == "residual":
+            out.append(csr_spmv.residual(blk, w, bs[i]))
+        elif mode == "correct":
+            out.append(csr_spmv.correct(blk, w, vs[i]))
+        else:
+            out.append(csr_spmv.jacobi(blk, w, bs[i], ss[i], x_base=base))
+    return out
+
+
+def restrict_to_replicated(p_op: DistOp, rs):
+    """r_c = Pᵀ·r at a shard → replicated transition: per shard its Pᵀ
+    block times its rows of r, summed over the shards in shard order."""
+    return psum([csr_spmv.spmv(t, r) for t, r in zip(p_op.tblocks, rs)])
+
+
 def dist_spmv(op, x, d: int):
-    """y = A·x for every operator family of the structured distribution:
-    z-slab operators on shard lists, replicated ones on full vectors
-    (``d``: the shard count, for a ``slice_in`` prolongation)."""
+    """y = A·x for every operator family: z-slab operators and ``DistOp``
+    on shard lists, replicated ones on full vectors (``d``: the shard
+    count, for a ``slice_in`` prolongation)."""
     if isinstance(op, SlabDia):
         return slab_apply(op, x)
+    if isinstance(op, DistOp):
+        return dist_op_apply(op, x)
     if isinstance(op, SlabProlong):
         return slab_prolong(op, x, d)
     if isinstance(op, SlabRestrict):
@@ -97,9 +204,29 @@ def pnorm(a) -> torch.Tensor:
 
 
 def _residual(lv: DistLevel, x, b):
-    if lv.sharded:
+    if isinstance(lv.a, SlabDia):
         return slab_apply(lv.a, x, "residual", bs=b)
+    if isinstance(lv.a, DistOp):
+        return dist_op_apply(lv.a, x, "residual", bs=b)
     return ops.residual(lv.a, x, b)
+
+
+def _jacobi(lv: DistLevel, x, b):
+    if isinstance(lv.a, SlabDia):
+        return slab_apply(lv.a, x, "jacobi", bs=b, ss=lv.s)
+    if isinstance(lv.a, DistOp):
+        return dist_op_apply(lv.a, x, "jacobi", bs=b, ss=lv.s)
+    return jacobi_sweep(lv.a, x, b, lv.s)
+
+
+def _correct(lv: DistLevel, xc, x, d: int):
+    """x + P·xc: the CSR kernel's correct mode on a ``DistOp`` (per shard)
+    or a replicated ``Csr`` P, else the transfer and an add."""
+    if isinstance(lv.p, DistOp):
+        return dist_op_apply(lv.p, xc, "correct", vs=x)
+    if isinstance(lv.p, Csr):
+        return csr_spmv.correct(lv.p, xc, x)
+    return _map(torch.add, x, dist_spmv(lv.p, xc, d))
 
 
 def _smooth(lv: DistLevel, params: AMGParams, x, b, sweeps: int,
@@ -114,10 +241,8 @@ def _smooth(lv: DistLevel, params: AMGParams, x, b, sweeps: int,
     for k in range(sweeps):
         if k == 0 and x_is_zero:
             x = _map(lambda s, bb: s * bb, lv.s, b)
-        elif lv.sharded:
-            x = slab_apply(lv.a, x, "jacobi", bs=b, ss=lv.s)
         else:
-            x = jacobi_sweep(lv.a, x, b, lv.s)
+            x = _jacobi(lv, x, b)
     return x
 
 
@@ -137,7 +262,7 @@ def _chebyshev(lv: DistLevel, params: AMGParams, x, b, sweeps: int,
             d = _map(lambda t: t / theta, r)
             x = _map(torch.add, x, d)
         for c_d, c_r in steps:
-            ad = slab_apply(lv.a, d) if lv.sharded else ops.spmv(lv.a, d)
+            ad = dist_spmv(lv.a, d, 0)
             r = _map(lambda t, di, u: t - di * u, r, lv.dinv, ad)
             d = _map(lambda u, t: c_d * u + c_r * t, d, r)
             x = _map(torch.add, x, d)
@@ -166,9 +291,11 @@ def dist_vcycle(dh: DistHierarchy, b):
             return coarse_solve(dh, bl)
         lv = levels[l]
         x = _smooth(lv, params, None, bl, params.nu_pre, x_is_zero=True)
-        bc = dist_spmv(lv.r, _residual(lv, x, bl), d)
+        r = _residual(lv, x, bl)
+        bc = (restrict_to_replicated(lv.p, r) if lv.r is None
+              else dist_spmv(lv.r, r, d))
         xc = coarse_visit(l + 1, bc, cyc)
-        x = _map(torch.add, x, dist_spmv(lv.p, xc, d))
+        x = _correct(lv, xc, x, d)
         return _smooth(lv, params, x, bl, params.nu_post)
 
     return descend(0, b, params.cycle)
@@ -264,8 +391,10 @@ def _dist_pcg_pipelined_local(dh: DistHierarchy, b, tol: float,
 
 
 def _as_shards(mesh, dh: DistHierarchy, v):
-    if isinstance(v, list) or not dh.levels[0].sharded:
+    if isinstance(v, list):
         return v, False
+    if not dh.levels[0].sharded:
+        return v.to(mesh.device), False
     return mesh.shard(v), True
 
 

@@ -1,4 +1,4 @@
-"""High-level solver facade (counterpart of the serial branch of
+"""High-level solver facade (counterpart of
 ``omp_amg_tpu/solver.py::AMGSolver``).
 
     import omp_amg_tpu_torch as amg
@@ -18,6 +18,12 @@
     solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128, 128, 128),
                            mesh=amg.ShardMesh(4, "cuda"),
                            transport="remote")     # z-slab distributed
+
+    solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis"),
+                           mesh=amg.ShardMesh(4, "cuda"),
+                           transport="remote",     # PMIS row-sharded
+                           refreshable=True)       # (per-shard setup)
+    solver.refresh(a_new)                          # distributed refresh
 
     solver = amg.AMGSolver(a, amg.AMGParams(smoother="chebyshev",
                                             cycle="w"), grid=(128,) * 3)
@@ -60,13 +66,18 @@ class AMGSolver:
     """AMG-preconditioned CG solver with amortized setup (classical PMIS or,
     with ``grid=``, structured hierarchy; f64-certified by default).
 
-    With ``mesh`` (a :class:`~.parallel.mesh.ShardMesh` on ``device``), a
-    structured problem builds and solves distributed over z-slabs: the
-    per-shard setup (:func:`~.parallel.dist_setup.dist_structured_setup`),
-    or, when that raises ValueError, the central setup partitioned
-    (:mod:`~.parallel.partition`); the certified solve runs the sharded f64
-    refinement loop (:mod:`~.parallel.dist_ir`). ``transport`` picks the
-    halo exchange of the V-cycle and PCG: ``"ppermute"`` (plain copies) or
+    With ``mesh`` (a :class:`~.parallel.mesh.ShardMesh` on ``device``), the
+    problem builds and solves distributed: a structured one over z-slabs
+    (the per-shard :func:`~.parallel.dist_setup.dist_structured_setup`), a
+    classical one (``coarsening="pmis"``, or ``"auto"`` without a grid or a
+    ``Dia``) by row blocks (the per-shard
+    :func:`~.parallel.dist_pmis_setup.dist_pmis_setup`; with
+    ``refreshable=True`` it records a ``DistSetupCache`` for
+    :meth:`refresh`); when the per-shard setup raises ValueError, the
+    central setup partitioned (:mod:`~.parallel.partition`). The certified
+    solve runs the sharded f64 refinement loop (:mod:`~.parallel.dist_ir`)
+    against the user's operator in float64. ``transport`` picks the halo
+    exchange of the V-cycle and PCG: ``"ppermute"`` (plain copies) or
     ``"remote"`` (the ``remote_halo`` kernel).
     """
 
@@ -78,10 +89,6 @@ class AMGSolver:
         self._dist = None
         self._dist_vcycle = None
         self._cache = None
-        if mesh is not None:
-            self._init_dist(a, params, device, grid, transport,
-                            agg_rows_per_dev, flavor, refreshable)
-            return
         if flavor != "host":
             raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
         if refreshable and grid is not None:
@@ -90,6 +97,10 @@ class AMGSolver:
             raise ValueError("refreshable=True records the classical (PMIS) "
                              "setup; it does not combine with grid=")
         check_supported(params)
+        if mesh is not None:
+            self._init_dist(a, params, device, grid, transport,
+                            agg_rows_per_dev, refreshable)
+            return
         self.device = resolve_device(device)
         self.a = a
         self.params = params
@@ -103,23 +114,14 @@ class AMGSolver:
         self._a_f64 = None
 
     def _init_dist(self, a, params, device, grid, transport,
-                   agg_rows_per_dev, flavor, refreshable):
+                   agg_rows_per_dev, refreshable):
+        from .parallel.dist_pmis_setup import (
+            DistSetupCache, dist_pmis_setup,
+        )
         from .parallel.dist_setup import dist_structured_setup
         from .parallel.partition import partition_hierarchy, place_hierarchy
         from .parallel.slab import check_transport
 
-        if refreshable:
-            raise NotImplementedError("refreshable=True with mesh= (the "
-                                      "distributed refresh) is not ported "
-                                      "yet")
-        if flavor != "host":
-            raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
-        if params.coarsening == "pmis" or (
-                params.coarsening == "auto"
-                and (grid is None or not isinstance(a, Dia))):
-            raise NotImplementedError("the distributed PMIS (classical) "
-                                      "setup is not ported yet")
-        check_supported(params)
         check_transport(transport)
         want = torch.device(device)
         if want.type != self.mesh.device.type or (
@@ -134,11 +136,27 @@ class AMGSolver:
         self._a_host = None
         self._a_f64 = None
         dh = None
-        if grid is not None and isinstance(a, Dia):
+        if (grid is not None and isinstance(a, Dia)
+                and params.coarsening in ("structured", "auto")):
             try:
                 dh = dist_structured_setup(
                     a, grid, self.mesh, params, transport=transport,
                     agg_rows_per_dev=agg_rows_per_dev)
+            except ValueError:
+                dh = None
+        use_pmis = params.coarsening == "pmis" or (
+            params.coarsening == "auto"
+            and (grid is None or not isinstance(a, Dia)))
+        if dh is None and use_pmis:
+            # the per-shard classical setup; a ValueError (an interpolation
+            # it does not run) falls through to the central build
+            dcache = DistSetupCache() if refreshable else None
+            try:
+                dh = dist_pmis_setup(a, self.mesh.size, params,
+                                     mesh=self.mesh,
+                                     agg_rows_per_dev=agg_rows_per_dev,
+                                     transport=transport, cache=dcache)
+                self._cache = dcache
             except ValueError:
                 dh = None
         if dh is None:
@@ -169,6 +187,17 @@ class AMGSolver:
             self._a_f64 = Dia(data=data.to(self.device, torch.float64),
                               offsets=tuple(self.a.offsets),
                               dims=self.a.dims)
+        return self._a_f64
+
+    @property
+    def dist_a_f64(self):
+        """The user's fine operator in float64, per shard in the mesh
+        hierarchy's level-0 layout, for the distributed certified loop
+        (built once, at the first certified solve)."""
+        if self._a_f64 is None:
+            from .parallel.dist_ir import fine_f64
+
+            self._a_f64 = fine_f64(self.a, self.hierarchy, self.device)
         return self._a_f64
 
     @property
@@ -267,8 +296,8 @@ class AMGSolver:
             key = ("ir", tol, int(maxiter), variant)
             if self._dist is None or self._dist[0] != key:
                 self._dist = (key, make_dist_ir_solver(
-                    self.mesh, self.hierarchy, tol=tol, maxiter=maxiter,
-                    variant=variant))
+                    self.mesh, self.hierarchy, self.dist_a_f64, tol=tol,
+                    maxiter=maxiter, variant=variant))
             res = self._dist[1](self.hierarchy, bp)
             self.last_info = {
                 "iters": sum(res.inner_iters),
@@ -303,7 +332,11 @@ class AMGSolver:
         new operator."""
         if self._cache is None:
             raise ValueError("construct AMGSolver(..., refreshable=True) "
-                             "to enable refresh")
+                             "to enable refresh"
+                             + (" (on a mesh: the classical PMIS setup)"
+                                if self.mesh is not None else ""))
+        if self.mesh is not None:
+            return self._refresh_dist(a_new)
         try:
             self.hierarchy = amg_refresh(a_new, self._cache)
         except PatternChangedError as e:
@@ -314,6 +347,33 @@ class AMGSolver:
             self._cache = SetupCache()
             self.hierarchy = amg_setup(a_new, self.params, device=self.device,
                                        cache=self._cache)
+        self.a = a_new
+        self._a_host = None
+        self._a_f64 = None
+        return self
+
+    def _refresh_dist(self, a_new):
+        """The mesh branch of :meth:`refresh`: the per-shard value-only
+        refresh (:func:`~.parallel.dist_pmis_setup.dist_pmis_refresh`), or
+        on a pattern change a warning and a fresh per-shard setup."""
+        from .parallel.dist_pmis_setup import (
+            DistSetupCache, dist_pmis_refresh, dist_pmis_setup,
+        )
+
+        try:
+            self.hierarchy = dist_pmis_refresh(a_new, self._cache)
+        except PatternChangedError as e:
+            import warnings
+
+            warnings.warn(f"refresh pattern guard tripped ({e}); running "
+                          "a full re-setup", stacklevel=3)
+            part_kw = self._cache.part_kw
+            self._cache = DistSetupCache()
+            self.hierarchy = dist_pmis_setup(
+                a_new, self.mesh.size, self.params, mesh=self.mesh,
+                cache=self._cache, **part_kw)
+        self._dist = None
+        self._dist_vcycle = None
         self.a = a_new
         self._a_host = None
         self._a_f64 = None

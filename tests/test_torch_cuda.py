@@ -5,10 +5,11 @@ lane width on rows of 0 to 200 nonzeros, ``const_stencil`` on ragged,
 one-plane, one-line, interior-block and unaligned grids at any z-chunk,
 ``panel_spmm`` on both of its instances, ``remote_halo``'s windows
 exactly on both of its paths), and the GPU solves' iteration counts
-(PMIS, PMIS with the probed Galerkin values, structured, and structured on
-a 4-shard mesh; and with the Chebyshev and l1-Jacobi smoothers, the W and F
-cycles, the ``inv`` coarse solve, the pipelined PCG and the device
-certified loop) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
+(PMIS, PMIS with the probed Galerkin values, structured, structured on a
+4-shard mesh and PMIS on a 4-shard mesh, whose shard windows the CSR kernel
+also reads against its twin; and with the Chebyshev and l1-Jacobi
+smoothers, the W and F cycles, the ``inv`` coarse solve, the pipelined PCG
+and the device certified loop) against the port's CPU solves. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere (the CPU runs only the twins). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -436,7 +437,7 @@ def test_gpu_solve_matches_cpu_iterations(n, params, grid):
     assert infos[0]["rel_residual"] <= 1e-8
 
 
-def _csr_launch(a, x, mode, vec, v=None, b=None, s=None):
+def _csr_launch(a, x, mode, vec, v=None, b=None, s=None, x_base=0):
     """``csr_spmv``'s C entry point at a forced lane width (the wrapper
     always passes ``a.vec``)."""
     from omp_amg_tpu_torch._build import cuda_kernels
@@ -445,7 +446,7 @@ def _csr_launch(a, x, mode, vec, v=None, b=None, s=None):
     vecs = (None if t is None else t.data_ptr() for t in (v, b, s))
     rc = cuda_kernels().csr_spmv_launch(
         {"spmv": 0, "residual": 1, "correct": 2, "jacobi": 3}[mode],
-        int(a.vals.dtype == torch.bfloat16), vec, a.n_rows,
+        int(a.vals.dtype == torch.bfloat16), vec, a.n_rows, x_base,
         a.indptr.data_ptr(), a.indices.data_ptr(), a.vals.data_ptr(),
         x.data_ptr(), *vecs, out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
@@ -489,6 +490,87 @@ def test_csr_kernel_every_width_matches_twin(ragged, vec, mode, dtype):
     empty = (a.indptr[1:] == a.indptr[:-1]).nonzero()[:, 0]
     assert torch.equal(got[empty], want[empty])
     assert torch.equal(_csr_launch(a, x, mode, vec, **kw), got)  # same bits
+
+
+@pytest.mark.parametrize("vec", [1, 4, 32])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "correct", "jacobi"])
+def test_csr_kernel_window_matches_twin(ragged, mode, vec):
+    """Rows whose columns address a window longer than the rows (a shard's
+    [left halo | own rows | right halo]); jacobi reads row i's own x at
+    x[x_base + i]. Bitwise the twin's epilogue on the same row sums."""
+    a, _, v, b, s = ragged
+    rng = np.random.default_rng(11)
+    h = 517
+    win = Csr(a.indptr, (a.indices + h).contiguous(), a.vals,
+              a.n_cols + 2 * h)
+    x = _vec(rng, win.n_cols)
+    kw = {"spmv": {}, "residual": {"b": b}, "correct": {"v": v},
+          "jacobi": {"b": b, "s": s, "x_base": h}}[mode]
+    got = _csr_launch(win, x, mode, vec, **kw)
+    want = csr_spmv.csr_spmv_plain(win, x, mode, **kw)
+    _check(got, want, 1e-5)
+    if mode == "jacobi":
+        assert torch.equal(csr_spmv.jacobi(win, x, b, s, x_base=h),
+                           _csr_launch(win, x, mode, win.vec, **kw))
+        with pytest.raises(ValueError):
+            csr_spmv.jacobi(win, x, b, s, x_base=2 * h + 1)
+
+
+@pytest.fixture(scope="module")
+def pmis_mesh():
+    """A 24³ PMIS hierarchy on 4 shards of the card (L0 and L1 in halo
+    mode, the ``remote_halo`` windows)."""
+    _need_cuda()
+    return amg.dist_pmis_setup(amg.poisson3d_7pt(24), 4, PARAMS,
+                               mesh=amg.ShardMesh(4, "cuda"),
+                               agg_rows_per_dev=256, transport="remote")
+
+
+@pytest.mark.parametrize("mode", ["spmv", "residual", "jacobi"])
+def test_csr_kernel_on_shard_windows_matches_twin(pmis_mesh, mode):
+    """Every sharded level's operator, shard by shard on its exchanged
+    window (``remote_halo``), against the twin on the same window."""
+    from omp_amg_tpu_torch.parallel.dist import DistOp, _windows
+
+    rng = np.random.default_rng(12)
+    checked = 0
+    for lv in pmis_mesh.levels:
+        op = lv.a
+        if not isinstance(op, DistOp):
+            continue
+        xs = [_vec(rng, op.m_in) for _ in op.blocks]
+        for i, (blk, (w, base)) in enumerate(zip(op.blocks,
+                                                 _windows(op, xs))):
+            b = _vec(rng, blk.n_rows)
+            kw = {"spmv": {}, "residual": {"b": b},
+                  "jacobi": {"b": b, "s": lv.s[i]}}[mode]
+            before = csr_spmv.launches
+            got = (csr_spmv.spmv(blk, w) if mode == "spmv" else
+                   csr_spmv.residual(blk, w, b) if mode == "residual" else
+                   csr_spmv.jacobi(blk, w, b, lv.s[i], x_base=base))
+            assert csr_spmv.launches == before + 1
+            want = csr_spmv.csr_spmv_plain(
+                blk, w, mode, x_base=base if mode == "jacobi" else 0, **kw)
+            _check(got, want, 1e-5)
+            checked += 1
+    assert checked >= 8
+
+
+def test_pmis_mesh_solve_matches_cpu_iterations():
+    _need_cuda()
+    a = amg.poisson3d_7pt(32)
+    b = amg.default_rhs(a, seed=0)
+    infos = []
+    for device in ("cuda", "cpu"):
+        solver = amg.AMGSolver(a, PARAMS, mesh=amg.ShardMesh(4, device),
+                               device=device, transport="remote",
+                               agg_rows_per_dev=512)
+        assert solver.stats()["sharded"][0]
+        solver.solve(b, tol=1e-8)
+        infos.append(solver.last_info)
+    assert infos[0]["inner_iters"] == infos[1]["inner_iters"]
+    assert infos[0]["outer_iters"] == infos[1]["outer_iters"]
+    assert infos[0]["rel_residual"] <= 1e-8
 
 
 def _stencil_offsets(dims, points):

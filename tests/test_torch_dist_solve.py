@@ -18,7 +18,8 @@ CPU (the reference on the 8 virtual CPU devices):
   (1e-5·max|ref|), and ``make_dist_solver`` with Chebyshev, l1-Jacobi, the
   W cycle and the pipelined PCG on each package's own per-shard setup:
   equal iteration counts; the pipelined count within one of standard's;
-- the facade's refusals with a mesh.
+- the facade's refusals with a mesh (the device-flavor setup; a refresh
+  with ``grid=``).
 """
 
 import jax
@@ -262,10 +263,13 @@ def test_dist_solver_options_count_equal_reference(option):
 def test_facade_refusals_with_mesh():
     a = port.poisson3d_7pt(8)
     mesh = port.ShardMesh(2, "cpu")
+    # the device-flavor setup is not ported (the PMIS mesh path is: see
+    # tests/test_torch_dist_pmis.py)
     with pytest.raises(NotImplementedError):
         port.AMGSolver(a, port.AMGParams(coarsening="pmis"), mesh=mesh,
-                       device="cpu")
-    with pytest.raises(NotImplementedError):
+                       device="cpu", flavor="device")
+    # the refresh records the classical setup: with grid= it is refused
+    with pytest.raises(ValueError):
         port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), mesh=mesh,
                        device="cpu", refreshable=True)
     with pytest.raises(ValueError):

@@ -146,10 +146,14 @@ def test_uncertified_solve_and_precondition():
 def test_solver_raises_on_unported_options(monkeypatch):
     a = port.poisson3d_7pt(8)
     p = port.AMGParams(coarsening="pmis")
-    # (refreshable=True is ported on one device; the distributed refresh
-    # is not)
-    for kw in (dict(mesh=object()), dict(flavor="device"),
-               dict(mesh=object(), refreshable=True)):
+    # (refreshable=True and the PMIS mesh path are ported, the mesh's
+    # refresh too: see test_torch_dist_pmis.py; the device-flavor setup is
+    # not, on one device or on a mesh)
+    for kw in (dict(flavor="device"),
+               dict(mesh=port.ShardMesh(2, "cpu"), device="cpu",
+                    flavor="device"),
+               dict(mesh=port.ShardMesh(2, "cpu"), device="cpu",
+                    refreshable=True, flavor="device")):
         with pytest.raises(NotImplementedError):
             port.AMGSolver(a, p, **kw)
     # structured hierarchies do not refresh: refused at construction
