@@ -91,7 +91,35 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``--load-hierarchy`` (equal iters, the loaded tensors bitwise the
    saved), ``--matrix`` on a MatrixMarket ``poisson3d_7pt(64)``, each with
    its kernels' launches; and one ``python -m omp_amg_tpu_torch.cli``
-   subprocess.
+   subprocess;
+13. the row-sharded PMIS path on one card: (13a) ``AMGSolver(
+   poisson3d_7pt(n), AMGParams(coarsening="pmis"), mesh=ShardMesh(4),
+   transport="remote", refreshable=True)`` with ``csr_spmv`` and
+   ``remote_halo`` checks on its shard windows; (13b) ``ppermute`` bitwise
+   ``remote``, the per-shard setup bitwise on 1, 2 and 4 shards, their
+   counts and the central route's; (13c) the distributed refresh ×2.0
+   against a fresh solver and ×1.7 with its tie repair; (13d) both mesh
+   paths certify the user's f64 operator at 24³ × 1.7;
+14. the captured PCG blocks (``solvers/graph.py``, the default on the
+   card) against the per-iteration loop (``solve(..., graph=False)``) on
+   the PMIS n³ path (standard and pipelined PCG), the structured n³ path
+   (V and W cycles), the z-slab path on 4 shards and the PMIS mesh path
+   on 4 shards (13c's fresh solver; standard and pipelined): equal inner
+   and outer counts, certified ≤ 1e-8, scipy ≤ 2e-8, max |Δx| (0 unless
+   the capture changed a kernel's path), the warm wall (median of 5), busy
+   time and share under ``torch.profiler``, host enqueue µs per block,
+   capture seconds, the graph pool's MB, blocks and frozen iterations per
+   solve, and the device ms of one start and one block replay (CUDA
+   events); ``ksweep`` lines time block sizes 1, 2, 4 and 8 on the serial
+   paths; a ×2.0 refresh of the PMIS solver drops its graphs and solves,
+   captured, in a fresh solver's counts; then ``spmv_dia`` and
+   ``spmv_csr`` of the public sparse API on the PMIS levels and on
+   operators built by ``dia_from_scipy``/``dia_to_csr`` (on the card by
+   default) against the kernels' twins.
+
+Since slice 11 every solve on the card runs the captured blocks, so the
+main paths' launch counts include the frozen iterations of the last block
+of each PCG solve.
 
 Phases 4-10 call ``solve(b, tol=1e-8)``, whose ``residual="auto"`` forms
 the certified residual on the card for a ``Dia`` operator.
@@ -150,6 +178,8 @@ REFRESH_BOUND = 2e-6    # refreshed against fresh values (f32 roundoff)
 REFRESH_SOLVER_N = 128  # the facade's ×1.7 refresh on the 7-point path
 CLI_N = 128             # the CLI's generated problems
 CLI_MATRIX_N = 64       # the CLI's MatrixMarket file: poisson3d_7pt(64)
+GRAPH_RUNS = 5          # phase 14: warm solves per loop (median reported)
+GRAPH_KSWEEP = (1, 2, 4, 8)  # phase 14: block sizes swept on the serial paths
 STEP0_N = 24            # the f64-certificate check: 24³ × 1.7
 # published peaks (NVIDIA data sheets): memory bytes/s and f32 FLOP/s
 # outside the tensor cores, by card name; the first match wins
@@ -899,7 +929,7 @@ def profile_solve(label, solver, b, top=8, **solve_kw):
     under ``torch.profiler``: wall seconds, device busy milliseconds (the
     profiler's "Self CUDA time total": the self device time of the device
     events) and their share of the wall, and the ``top`` device items by
-    time."""
+    time. Returns (wall seconds, busy milliseconds)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -931,6 +961,7 @@ def profile_solve(label, solver, b, top=8, **solve_kw):
               f" count={e.count} us_each="
               f"{e.self_device_time_total / max(e.count, 1):.2f} "
               f"name={e.key[:90]}", flush=True)
+    return wall, busy_ms
 
 
 def halo_row(tag, srcs, nl, nr, flush):
@@ -1808,7 +1839,8 @@ def certified_counts(dh, mesh, a, b):
 
 def pmis_mesh_path(n, counters, flush, rng):
     """Phase 13: the row-sharded PMIS path on one card (module docstring).
-    Returns ({path: launches}, the 13a run, kernel rows)."""
+    Returns ({path: launches}, the 13a run, kernel rows, the 13c fresh
+    solver of 2.0·A, which phase 14 reuses)."""
     import warnings
 
     import torch
@@ -1903,7 +1935,6 @@ def pmis_mesh_path(n, counters, flush, rng):
                                                   fi["outer_iters"]):
         raise AssertionError("pmis mesh refresh x2.0: counts differ from "
                              "a fresh solver's")
-    del fresh
 
     # 13b (continued) at PARITY_N³: keep_host bitwise on 1, 2, 4 shards,
     # the certified counts of 1, 2, 4 shards and of the central route
@@ -2008,7 +2039,328 @@ def pmis_mesh_path(n, counters, flush, rng):
               f"{s.last_info['outer_iters']}", flush=True)
         check_certified(f"f64 certificate {tag}", s.last_info, rel)
         del s
-    return paths, run, rows
+    return paths, run, rows, fresh
+
+
+def graph_totals(owner, keys) -> dict:
+    """The captured-block runners' stats on ``owner`` (a hierarchy),
+    summed over the runners keyed in ``keys``."""
+    from omp_amg_tpu_torch.solvers.graph import graph_stats
+
+    tot = {"capture_s": 0.0, "pool_bytes": 0, "blocks": 0, "frozen": 0,
+           "enqueue_s": 0.0, "solves": 0, "path_changed": False}
+    for key, st in graph_stats(owner).items():
+        if key in keys:
+            for k in tot:
+                tot[k] = (tot[k] | st[k] if k == "path_changed"
+                          else tot[k] + st[k])
+    return tot
+
+
+def replay_ms(owner, keys):
+    """Device milliseconds of one replay of the start and the block graph
+    of each runner keyed in ``keys`` on ``owner`` (CUDA events, warm, the
+    L2 as the solve leaves it): [(start ms, block ms)]."""
+    return [(cuda_ms(r.start_graph.replay), cuda_ms(r.block_graph.replay))
+            for key, r in owner._graphs.items() if key in keys]
+
+
+def loop_pair(label, solver, b, scipy_rel, counters, **solve_kw):
+    """Phase 14 on one path: ``graph=False`` (the per-iteration loop), then
+    the default (captured blocks). Each: one cold solve (for the captured
+    loop it captures, unless an earlier phase did), GRAPH_RUNS warm solves
+    (median wall), launches per warm solve, one profiled solve (busy ms,
+    its share of the profiled wall and of the warm median); for the
+    captured loop, over the runners the warm solves replayed: capture
+    seconds, the graph pool's MB, blocks, frozen iterations and inner
+    solves per solve, host enqueue µs per block, and the device ms of one
+    start and one block replay. Fails unless the counts are equal and both
+    certify (≤ 1e-8, scipy ≤ 2e-8). Returns {loop: numbers}."""
+    import statistics
+
+    import torch
+
+    def runner_stats(owner):
+        return {k: dict(r.stats)
+                for k, r in getattr(owner, "_graphs", {}).items()}
+
+    out = {}
+    for loop, kw in (("per-iteration", {"graph": False}), ("captured", {})):
+        kw = {**solve_kw, **kw}
+        owner = solver.hierarchy
+        before = runner_stats(owner)
+        t0 = time.perf_counter()
+        x = solver.solve(b, tol=1e-8, **kw)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        info = dict(solver.last_info)
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        rel = scipy_rel(x)
+        mid = runner_stats(owner)
+        reset_counters(counters)
+        walls = []
+        for _ in range(GRAPH_RUNS):
+            t0 = time.perf_counter()
+            solver.solve(b, tol=1e-8, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: m.launches // GRAPH_RUNS for k, m in counters.items()
+                    if m.launches}
+        after = runner_stats(owner)
+        used = [k for k in after if after[k]["solves"]
+                > mid.get(k, {}).get("solves", 0)]
+        wall_p, busy = profile_solve(f"{label} {loop}", solver, b, **kw)
+        wall = statistics.median(walls)
+        run = dict(info=info, x=x, rel=rel, cold_s=cold, wall_s=wall,
+                   walls=walls, launches=launches, busy_ms=busy,
+                   busy_share=busy / 1e3 / wall_p,
+                   busy_over_warm=busy / 1e3 / wall)
+        extra = ""
+        if loop == "captured":
+            def grown(k):
+                return sum(after[u][k] - mid[u][k] for u in used)
+            blocks = grown("blocks")
+            run.update(
+                captured_here=any(u not in before for u in used),
+                capture_s=sum(after[u]["capture_s"] for u in used),
+                pool_mb=sum(after[u]["pool_bytes"] for u in used) / 2**20,
+                path_changed=any(after[u]["path_changed"] for u in used),
+                blocks=blocks / GRAPH_RUNS,
+                frozen=grown("frozen") / GRAPH_RUNS,
+                inner_solves=grown("solves") / GRAPH_RUNS,
+                enqueue_us=1e6 * grown("enqueue_s") / max(blocks, 1),
+                replay_ms=replay_ms(owner, used))
+            replays = [(round(a, 4), round(b, 4))
+                       for a, b in run["replay_ms"]]
+            extra = (f" capture_s={run['capture_s']:.3f} captured_here="
+                     f"{run['captured_here']} pool_MB={run['pool_mb']:.1f} "
+                     f"runners={len(used)} blocks_per_solve="
+                     f"{run['blocks']:g} frozen_per_solve={run['frozen']:g} "
+                     f"inner_solves_per_solve={run['inner_solves']:g} "
+                     f"enqueue_us_per_block={run['enqueue_us']:.1f} "
+                     f"path_changed={run['path_changed']} replay_ms(start, "
+                     f"block)={replays}")
+        print(f"graph14 {label} {loop}: inner={info['inner_iters']} "
+              f"outer={info['outer_iters']} certified="
+              f"{info['rel_residual']:.3e} scipy={rel:.3e} cold_s={cold:.4f}"
+              f" warm_s_median={wall:.4f} warm_s="
+              f"{[round(w, 4) for w in walls]} busy_ms={busy:.3f} "
+              f"busy_share={run['busy_share']:.4f} busy_over_warm_median="
+              f"{run['busy_over_warm']:.4f} launches_per_solve={launches}"
+              + extra, flush=True)
+        out[loop] = run
+    e, c = out["per-iteration"], out["captured"]
+    dx = float(np.abs(np.asarray(c["x"]) - np.asarray(e["x"])).max())
+    same = (e["info"]["inner_iters"], e["info"]["outer_iters"]) == (
+        c["info"]["inner_iters"], c["info"]["outer_iters"])
+    print(f"graph14 {label} summary: counts equal={same} max_abs_dx="
+          f"{dx:.3e} warm_s {e['wall_s']:.4f} -> {c['wall_s']:.4f} "
+          f"busy_share {e['busy_share']:.4f} -> {c['busy_share']:.4f} "
+          f"busy_over_warm_median {e['busy_over_warm']:.4f} -> "
+          f"{c['busy_over_warm']:.4f} capture_s={c['capture_s']:.3f} "
+          f"path_changed={c['path_changed']}", flush=True)
+    for loop, run in out.items():
+        check_certified(f"graph14 {label} {loop}", run["info"], run["rel"])
+        if run["rel"] > 2e-8:
+            raise AssertionError(f"graph14 {label} {loop}: scipy "
+                                 f"{run['rel']:.3e} > 2e-8")
+    if not same:
+        histories(f"graph14 {label} per-iteration", e["info"])
+        histories(f"graph14 {label} captured", c["info"])
+        raise AssertionError(f"graph14 {label}: the captured loop's counts "
+                             "differ from the per-iteration loop's")
+    if not c["replay_ms"]:
+        raise AssertionError(f"graph14 {label}: no captured block replayed")
+    if dx != 0 and not c["path_changed"]:
+        raise AssertionError(f"graph14 {label}: x differs by {dx:.3e} with "
+                             "no kernel path changed by the capture")
+    return out
+
+
+def captured_paths(n, counters, mesh_solver):
+    """Phase 14: the captured PCG blocks (``solvers/graph.py``) against the
+    per-iteration loop on the PMIS n³ path (standard and pipelined), the
+    structured n³ path (V and W), the z-slab path on SHARDS shards and the
+    PMIS mesh path on SHARDS shards (``mesh_solver``, phase 13c's fresh
+    solver of 2.0·A; standard and pipelined); the block size K swept on the
+    serial paths (``ksweep`` lines); then a ×2.0 refresh of the PMIS solver
+    and a captured solve against a fresh solver's counts, with the old
+    hierarchy's graphs dropped."""
+    import dataclasses
+    import gc
+    import weakref
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    a = amg.poisson3d_7pt(n)
+    b = amg.default_rhs(a, seed=SEED)
+    b_card = b.to("cuda")
+    b64 = b.numpy().astype(np.float64)
+    pmis = amg.AMGParams(coarsening="pmis")
+
+    def rel_of(op):
+        a_sp = amg.dia_to_scipy(op)
+        return lambda x: float(np.linalg.norm(b64 - a_sp @ x)
+                               / np.linalg.norm(b64))
+
+    def ksweep(label, solver):
+        """The warm wall per block size K (b on the card)."""
+        import statistics
+
+        keep = G.BLOCK
+        try:
+            for k in GRAPH_KSWEEP:
+                G.BLOCK = k
+                solver.solve(b_card, tol=1e-8, residual="device",
+                             device_result=True)
+                keys = set(solver.hierarchy._graphs)
+                st0 = graph_totals(solver.hierarchy, keys)
+                walls = []
+                for _ in range(GRAPH_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    solver.solve(b_card, tol=1e-8, residual="device",
+                                 device_result=True)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                st1 = graph_totals(solver.hierarchy, keys)
+                key = next(k2 for k2 in solver.hierarchy._graphs
+                           if k2[1] == k)
+                ((start_ms, block_ms),) = replay_ms(solver.hierarchy, {key})
+                print(f"ksweep {label} K={k} warm_s_median="
+                      f"{statistics.median(walls):.4f} inner="
+                      f"{solver.last_info['inner_iters']} blocks_per_solve="
+                      f"{(st1['blocks'] - st0['blocks']) / GRAPH_RUNS:g} "
+                      f"frozen_per_solve="
+                      f"{(st1['frozen'] - st0['frozen']) / GRAPH_RUNS:g} "
+                      f"start_ms={start_ms:.4f} block_ms={block_ms:.4f} "
+                      f"block_ms_per_iteration={block_ms / k:.4f}",
+                      flush=True)
+        finally:
+            G.BLOCK = keep
+
+    # the PMIS n³ path, b on the card (device loop, device_result)
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, pmis, device="cuda", refreshable=True)
+    print(f"graph14 pmis n={n}^3 setup_s={time.perf_counter() - t0:.3f} "
+          f"block K={G.BLOCK}", flush=True)
+    for variant in ("standard", "pipelined"):
+        loop_pair(f"pmis n={n}^3 {variant}", solver, b_card, rel_of(a),
+                  counters, residual="device", device_result=True,
+                  variant=variant)
+    ksweep(f"pmis n={n}^3", solver)
+    # refresh ×2.0: the old hierarchy's graphs go with it
+    old = weakref.ref(next(iter(solver.hierarchy._graphs.values())))
+    n_graphs = len(solver.hierarchy._graphs)
+    a2 = amg.Dia(data=a.data * 2.0, offsets=a.offsets, dims=a.dims)
+    t0 = time.perf_counter()
+    solver.refresh(a2)
+    refresh_s = time.perf_counter() - t0
+    gc.collect()
+    if old() is not None:
+        raise AssertionError("graph14: a graph outlived its hierarchy")
+    x2 = solver.solve(b_card, tol=1e-8, residual="device",
+                             device_result=True).cpu().numpy()
+    ri = dict(solver.last_info)
+    fresh = amg.AMGSolver(a2, pmis, device="cuda")
+    fresh.solve(b_card, tol=1e-8, residual="device", device_result=True)
+    fi = fresh.last_info
+    rel2 = rel_of(a2)(x2)
+    print(f"graph14 pmis n={n}^3 refresh x2.0 refresh_s={refresh_s:.3f} "
+          f"dropped_graphs={n_graphs} captured inner={ri['inner_iters']} "
+          f"outer={ri['outer_iters']} certified={ri['rel_residual']:.3e} "
+          f"scipy={rel2:.3e} | fresh inner={fi['inner_iters']} outer="
+          f"{fi['outer_iters']} | runners on the new hierarchy="
+          f"{len(solver.hierarchy._graphs)}", flush=True)
+    check_certified("graph14 refresh x2.0", ri, rel2)
+    if (ri["inner_iters"], ri["outer_iters"]) != (fi["inner_iters"],
+                                                  fi["outer_iters"]):
+        raise AssertionError("graph14 refresh x2.0: counts differ from a "
+                             "fresh solver's")
+    del solver, fresh
+
+    # the structured n³ path, V and W on one setup, b on the card
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(n,) * 3, device="cuda")
+    print(f"graph14 structured n={n}^3 setup_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    hier0 = solver.hierarchy
+    for cycle in ("v", "w"):
+        solver.hierarchy = dataclasses.replace(
+            hier0, params=dataclasses.replace(hier0.params, cycle=cycle))
+        loop_pair(f"structured n={n}^3 {cycle.upper()}", solver, b_card,
+                  rel_of(a), counters, residual="device",
+                  device_result=True)
+        if cycle == "v":
+            ksweep(f"structured n={n}^3", solver)
+    del solver, hier0
+
+    # the z-slab path on SHARDS shards (b from the host, as phase 10)
+    t0 = time.perf_counter()
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(n,) * 3,
+                           mesh=amg.ShardMesh(SHARDS, "cuda"), device="cuda",
+                           transport="remote")
+    print(f"graph14 z-slab d={SHARDS} n={n}^3 setup_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    loop_pair(f"z-slab d={SHARDS} n={n}^3", solver, b, rel_of(a), counters)
+    del solver
+
+    # the PMIS mesh path on SHARDS shards: phase 13c's solver of 2.0·A
+    for variant in ("standard", "pipelined"):
+        loop_pair(f"pmis mesh d={SHARDS} n={n}^3 x2.0 {variant}",
+                  mesh_solver, b, rel_of(a2), counters, variant=variant)
+
+
+def sparse_api_checks(n, rng):
+    """Phase 14: the public sparse API on the card: ``spmv_dia`` and
+    ``spmv_csr`` on the PMIS n³ levels 0 and 1 (and the constructors'
+    default device) against the kernels' twins, each launching its kernel
+    once."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import csr_spmv, dia_spmv
+
+    a = amg.poisson3d_7pt(n)
+    hier = amg.amg_setup(a, amg.AMGParams(coarsening="pmis"), device="cuda")
+    small = amg.poisson3d_7pt(16)
+    built = {"dia_from_scipy": amg.dia_from_scipy(amg.dia_to_scipy(small)),
+             "dia_to_csr": amg.dia_to_csr(small),
+             "coo_to_csr": amg.coo_to_csr([0, 0, 1], [0, 0, 1],
+                                          [1.0, 2.0, 3.0], (2, 2))}
+    for name, op in built.items():
+        t = op.data if isinstance(op, amg.Dia) else op.vals
+        if not t.is_cuda:
+            raise AssertionError(f"sparse API: {name} not on the card")
+    if amg.diagonal(built["coo_to_csr"]).cpu().tolist() != [3.0, 3.0]:
+        raise AssertionError("sparse API: coo_to_csr did not sum duplicates")
+    cases = [("spmv_dia", "L0-A", hier.levels[0].a, dia_spmv,
+              lambda op, x: dia_spmv.dia_spmv_plain(op, x), DIA_BOUND),
+             ("spmv_csr", "L1-A", hier.levels[1].a, csr_spmv,
+              lambda op, x: csr_spmv.csr_spmv_plain(op, x), CSR_BOUND),
+             ("spmv_dia", "built", built["dia_from_scipy"], dia_spmv,
+              lambda op, x: dia_spmv.dia_spmv_plain(op, x), DIA_BOUND),
+             ("spmv_csr", "built", built["dia_to_csr"], csr_spmv,
+              lambda op, x: csr_spmv.csr_spmv_plain(op, x), CSR_BOUND)]
+    for fn, tag, op, mod, plain, bound in cases:
+        x = _vec(rng, op.n_rows, "cuda")
+        before = mod.launches
+        got = getattr(amg, fn)(op, x)
+        torch.cuda.synchronize()
+        if mod.launches != before + 1:
+            raise AssertionError(f"sparse API {fn}: its kernel did not "
+                                 "launch once")
+        want = plain(op, x)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"sparse API {fn} {tag} rows={op.n_rows} max_abs_err={err:.3e}"
+              f" (bound {bound:g} x {scale:.3e})", flush=True)
+        if err > bound * scale:
+            raise AssertionError(f"sparse API {fn} {tag}: {err:.3e} from "
+                                 "the twin")
 
 
 def main() -> int:
@@ -2192,10 +2544,18 @@ def main() -> int:
     cli_launches = cli_paths(counters)
 
     # phase 13: the row-sharded PMIS path on one card
-    pm_launches, pm_run, pm_rows = pmis_mesh_path(args.n, counters, flush,
-                                                  rng)
+    pm_launches, pm_run, pm_rows, pm_solver = pmis_mesh_path(
+        args.n, counters, flush, rng)
     for name, more in pm_rows.items():
         rows[name] += more
+
+    # phase 14: the captured PCG blocks against the per-iteration loop, and
+    # the public sparse API's products on the card
+    t0 = time.perf_counter()
+    captured_paths(args.n, counters, pm_solver)
+    del pm_solver
+    sparse_api_checks(args.n, rng)
+    print(f"phase 14 seconds={time.perf_counter() - t0:.1f}", flush=True)
 
     if any(m.startswith(("jax", "omp_amg_tpu.")) or m == "omp_amg_tpu"
            for m in sys.modules):

@@ -53,20 +53,24 @@ from .amg.refresh import (  # noqa: F401
 )
 from .amg.smoothers import chebyshev, estimate_lmax  # noqa: F401
 from .amg.structured import GridProlong, GridRestrict  # noqa: F401
-from .amg.vcycle import vcycle  # noqa: F401
+from .amg.vcycle import vcycle, vcycle_apply  # noqa: F401
 from .interop import dist_hierarchy_from_numpy, hierarchy_from_numpy  # noqa: F401
 from .parallel.dist_pmis_setup import (  # noqa: F401
     DistSetupCache, dist_pmis_refresh, dist_pmis_setup,
 )
 from .parallel.mesh import ShardMesh  # noqa: F401
+from .ops.spmv import spmv, spmv_csr, spmv_dia  # noqa: F401
 from .problems.poisson import (  # noqa: F401
-    aniso2d_9pt, default_rhs, poisson2d_5pt, poisson3d_7pt, poisson3d_27pt,
+    PROBLEMS, aniso2d_9pt, default_rhs, poisson2d_5pt, poisson3d_7pt, poisson3d_27pt,
     stencil_to_dia,
 )
 from .solver import AMGSolver  # noqa: F401
 from .solvers.cg import amg_pcg, cg, pcg, pcg_pipelined  # noqa: F401
 from .solvers.ir import solve_ir, solve_ir_device  # noqa: F401
-from .sparse.formats import ConstDia, Csr, Dia, dia_to_scipy  # noqa: F401
+from .sparse.formats import (  # noqa: F401
+    ConstDia, Csr, Dia, coo_to_csr, csr_from_scipy, csr_to_scipy,
+    dia_from_scipy, dia_to_csr, dia_to_scipy, diagonal,
+)
 from .utils.io import (  # noqa: F401
     load_hierarchy, read_matrix_market, save_hierarchy, write_matrix_market,
 )

@@ -74,41 +74,51 @@ def coarse_solve(hier, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(chol.T, y, upper=True)[:, 0]
 
 
+def _coarse_visit(hier, l: int, bc: torch.Tensor, cyc: str) -> torch.Tensor:
+    """Solve the level-l problem per the cycle type (l ≥ 1)."""
+    if l == len(hier.levels):
+        return coarse_solve(hier, bc)
+    # the reference caps the W-branching depth (its cycle unrolls in one
+    # trace); kept for parity
+    if cyc == "v" or l > 8:
+        return _descend(hier, l, bc, "v")
+    x1 = _descend(hier, l, bc, cyc)
+    # the second visit refines x1 on its residual (W: the same cycle type;
+    # F: a V-recursion)
+    r2 = residual(hier.levels[l].a, x1, bc)
+    return x1 + _descend(hier, l, r2, "v" if cyc == "f" else cyc)
+
+
+def _descend(hier, l: int, bl: torch.Tensor, cyc: str) -> torch.Tensor:
+    if l == len(hier.levels):
+        return coarse_solve(hier, bl)
+    params = hier.params
+    lv = hier.levels[l]
+    if _fused_v11_level(lv, params):
+        r = const_stencil.presmooth_residual(lv.a, bl, lv.s)
+        xc = _coarse_visit(hier, l + 1, spmv(lv.r, r), cyc)
+        return const_stencil.correct_jacobi(lv.a, bl, spmv(lv.p, xc), lv.s)
+    x = _smooth_zero(lv, params, bl, params.nu_pre)
+    xc = _coarse_visit(hier, l + 1, spmv(lv.r, residual(lv.a, x, bl)), cyc)
+    if isinstance(lv.p, Csr):
+        x = csr_spmv.correct(lv.p, xc, x)
+    else:
+        x = x + spmv(lv.p, xc)
+    return _smooth(lv, params, x, bl, params.nu_post)
+
+
 def vcycle(hier: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     """One cycle of type ``params.cycle`` applied to b with zero initial
-    guess → M⁻¹ b."""
-    params = hier.params
-    levels = hier.levels
+    guess → M⁻¹ b. (The recursion is two module functions, not nested
+    closures: closures that call each other form a reference cycle, which
+    would keep the hierarchy, and the CUDA graphs cached on it, alive until
+    a garbage collection.)"""
+    return _descend(hier, 0, b, hier.params.cycle)
 
-    def coarse_visit(l, bc, cyc):
-        """Solve the level-l problem per the cycle type (l ≥ 1)."""
-        if l == len(levels):
-            return coarse_solve(hier, bc)
-        # the reference caps the W-branching depth (its cycle unrolls in one
-        # trace); kept for parity
-        if cyc == "v" or l > 8:
-            return descend(l, bc, "v")
-        x1 = descend(l, bc, cyc)
-        # the second visit refines x1 on its residual (W: the same cycle
-        # type; F: a V-recursion)
-        r2 = residual(levels[l].a, x1, bc)
-        return x1 + descend(l, r2, "v" if cyc == "f" else cyc)
 
-    def descend(l, bl, cyc):
-        if l == len(levels):
-            return coarse_solve(hier, bl)
-        lv = levels[l]
-        if _fused_v11_level(lv, params):
-            r = const_stencil.presmooth_residual(lv.a, bl, lv.s)
-            xc = coarse_visit(l + 1, spmv(lv.r, r), cyc)
-            return const_stencil.correct_jacobi(lv.a, bl, spmv(lv.p, xc),
-                                                lv.s)
-        x = _smooth_zero(lv, params, bl, params.nu_pre)
-        xc = coarse_visit(l + 1, spmv(lv.r, residual(lv.a, x, bl)), cyc)
-        if isinstance(lv.p, Csr):
-            x = csr_spmv.correct(lv.p, xc, x)
-        else:
-            x = x + spmv(lv.p, xc)
-        return _smooth(lv, params, x, bl, params.nu_post)
-
-    return descend(0, b, params.cycle)
+def vcycle_apply(hier: Hierarchy, x: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """x + M⁻¹(b − A·x): the cycle as one stationary iteration (a
+    standalone AMG solve step)."""
+    r = residual(hier.levels[0].a, x, b) if hier.levels else b
+    return x + vcycle(hier, r)

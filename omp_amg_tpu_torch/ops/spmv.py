@@ -6,7 +6,9 @@ a banded ``Dia`` to the DIA kernel (:mod:`.dia_spmv`), a ``Csr`` to the CSR
 kernel (:mod:`.csr_spmv`), and the structured grid transfers to their slice
 forms (:mod:`..amg.structured`). The fused residual and Jacobi epilogues are
 dispatched the same way; on a ``ConstDia`` the Jacobi scale ``s`` is one
-float.
+float. ``spmv_csr`` and ``spmv_dia`` are the reference's public
+per-format products: the CSR and the DIA kernel on CUDA tensors, their
+plain twins on CPU tensors.
 """
 
 from __future__ import annotations
@@ -48,3 +50,13 @@ def jacobi(a, x: torch.Tensor, b: torch.Tensor, s) -> torch.Tensor:
     """One weighted-Jacobi sweep x + s ⊙ (b − A·x), fused into the SpMV
     pass (s = ω·D⁻¹: a per-row tensor, or a float on a ``ConstDia``)."""
     return _kernel_module(a).jacobi(a, x, b, s)
+
+
+def spmv_csr(a: Csr, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for a ``Csr``."""
+    return csr_spmv.spmv(a, x)
+
+
+def spmv_dia(a: Dia, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for a device ``Dia`` (torch planes)."""
+    return dia_spmv.spmv(a, x)

@@ -29,12 +29,15 @@ Two operator families shard a level's rows over the mesh:
 Levels below the agglomeration threshold are replicated: one full vector,
 the port's own single-device operators (``Csr`` or ``Dia``, ``ConstDia``,
 the grid transfers) and kernels. Global dots and norms are sums over the
-shards in shard order (:func:`.mesh.psum`), the only global sync points of
-PCG; the convergence check syncs once per iteration, as the single-device
-PCG does. The pipelined (single-reduction) PCG sums its three scalars over
-the shards at one point per iteration. The smoothers (Jacobi, l1-Jacobi,
+shards in shard order (:func:`.mesh.psum`), the only global reduction
+points of PCG, so the counts do not depend on the partition. The pipelined
+(single-reduction) PCG sums its three scalars over the shards at one point
+per iteration. The smoothers (Jacobi, l1-Jacobi,
 Chebyshev), the V, W and F cycles and both coarse solves are the
-single-device ones, applied per shard, on either family.
+single-device ones, applied per shard, on either family. Both PCGs are
+start and iteration steps over shard lists (:mod:`..solvers.graph`): on the
+card :func:`make_dist_solver` captures blocks of them as CUDA graphs,
+cached on the ``DistHierarchy``, and reads one flag per block.
 
 The reference's routed-ELL plans and its interior/boundary row split are
 left out: every shard's rows run from its window in one ``csr_spmv`` pass.
@@ -53,7 +56,8 @@ from ..amg.smoothers import chebyshev_coeffs, jacobi_sweep
 from ..amg.vcycle import coarse_solve
 from ..ops import csr_spmv
 from ..ops import spmv as ops
-from ..solvers.cg import VARIANTS, CGResult
+from ..solvers import graph as G
+from ..solvers.cg import VARIANTS, CGResult, host_copy, standard_program
 from ..sparse.formats import Csr
 from .mesh import psum
 from .slab import (
@@ -129,11 +133,8 @@ class DistHierarchy:
         return 1
 
 
-def _map(fn, *vs):
-    """``fn`` per shard of sharded (list) arguments, or once on tensors."""
-    if isinstance(vs[0], list):
-        return [fn(*t) for t in zip(*vs)]
-    return fn(*vs)
+_map = G.vmap      # fn per shard of sharded (list) arguments, or once on
+                   # tensors
 
 
 def _windows(op: DistOp, xs):
@@ -269,72 +270,55 @@ def _chebyshev(lv: DistLevel, params: AMGParams, x, b, sweeps: int,
     return x
 
 
+def _coarse_visit(dh: DistHierarchy, l: int, bc, cyc: str):
+    """The coarse visits of :func:`..amg.vcycle.vcycle`, depth cap
+    included."""
+    if l == len(dh.levels) or cyc == "v" or l > 8:
+        return _descend(dh, l, bc, "v")
+    x1 = _descend(dh, l, bc, cyc)
+    r2 = _residual(dh.levels[l], x1, bc)
+    return _map(torch.add, x1,
+                _descend(dh, l, r2, "v" if cyc == "f" else cyc))
+
+
+def _descend(dh: DistHierarchy, l: int, bl, cyc: str):
+    if l == len(dh.levels):
+        return coarse_solve(dh, bl)
+    params, lv, d = dh.params, dh.levels[l], dh.nshards
+    x = _smooth(lv, params, None, bl, params.nu_pre, x_is_zero=True)
+    r = _residual(lv, x, bl)
+    bc = (restrict_to_replicated(lv.p, r) if lv.r is None
+          else dist_spmv(lv.r, r, d))
+    xc = _coarse_visit(dh, l + 1, bc, cyc)
+    x = _correct(lv, xc, x, d)
+    return _smooth(lv, params, x, bl, params.nu_post)
+
+
 def dist_vcycle(dh: DistHierarchy, b):
     """One cycle of type ``params.cycle`` with zero initial guess: b and the
-    result are shard lists (or full vectors when level 0 is replicated)."""
-    params = dh.params
-    levels = dh.levels
-    d = dh.nshards
-
-    def coarse_visit(l, bc, cyc):
-        """The coarse visits of :func:`..amg.vcycle.vcycle`, depth cap
-        included."""
-        if l == len(levels) or cyc == "v" or l > 8:
-            return descend(l, bc, "v")
-        x1 = descend(l, bc, cyc)
-        r2 = _residual(levels[l], x1, bc)
-        return _map(torch.add, x1,
-                    descend(l, r2, "v" if cyc == "f" else cyc))
-
-    def descend(l, bl, cyc):
-        if l == len(levels):
-            return coarse_solve(dh, bl)
-        lv = levels[l]
-        x = _smooth(lv, params, None, bl, params.nu_pre, x_is_zero=True)
-        r = _residual(lv, x, bl)
-        bc = (restrict_to_replicated(lv.p, r) if lv.r is None
-              else dist_spmv(lv.r, r, d))
-        xc = coarse_visit(l + 1, bc, cyc)
-        x = _correct(lv, xc, x, d)
-        return _smooth(lv, params, x, bl, params.nu_post)
-
-    return descend(0, b, params.cycle)
+    result are shard lists (or full vectors when level 0 is replicated).
+    The recursion is module functions, as :func:`..amg.vcycle.vcycle`'s
+    (no closure cycle keeps ``dh`` alive)."""
+    return _descend(dh, 0, b, dh.params.cycle)
 
 
-def _dist_pcg_local(dh: DistHierarchy, b, tol: float,
-                    maxiter: int) -> CGResult:
-    """Sharded AMG-PCG from x = 0 (``b``: shard list). The scalars stay on
-    the device; the one host sync per iteration is the residual norm."""
+def _programs(dh: DistHierarchy, maxiter: int, variant: str):
+    """The sharded PCG of ``variant`` as start and iteration steps
+    (:mod:`..solvers.graph`) from x = 0, on shard lists (or full vectors
+    when level 0 is replicated)."""
     a = dh.levels[0].a
     d = dh.nshards
-    x = _map(torch.zeros_like, b)
-    r = _map(torch.clone, b)
-    bnorm = np.float32(pnorm(b).item())
-    if bnorm == 0:
-        bnorm = np.float32(1.0)
-    # the reference compares ‖r‖ > tol·‖b‖ in float32
-    threshold = float(np.float32(tol) * bnorm)
-    z = dist_vcycle(dh, r)
-    p = z
-    rz = pdot(r, z)
-    rnorm = pnorm(r).item()
-    history = [rnorm]
-    k = 0
-    while rnorm > threshold and k < maxiter:
-        q = dist_spmv(a, p, d)
-        alpha = rz / pdot(p, q)
-        x = _map(lambda xi, pi: xi + alpha * pi, x, p)
-        r = _map(lambda ri, qi: ri - alpha * qi, r, q)
-        z = dist_vcycle(dh, r)
-        rz_new = pdot(r, z)
-        beta = rz_new / rz
-        p = _map(lambda zi, pi: zi + beta * pi, z, p)
-        rz = rz_new
-        k += 1
-        rnorm = pnorm(r).item()
-        history.append(rnorm)
-    return CGResult(x=x, iters=k, rel_residual=float(rnorm / bnorm),
-                    history=history)
+
+    def precond(r):
+        return dist_vcycle(dh, r)
+
+    def apply_a(v):
+        return dist_spmv(a, v, d)
+
+    if variant == "pipelined":
+        return _pipelined_program(apply_a, precond, maxiter)
+    return standard_program(apply_a, precond, maxiter, dot=pdot, norm=pnorm,
+                            vmap=_map)
 
 
 def _pdots(pairs) -> torch.Tensor:
@@ -347,47 +331,57 @@ def _pdots(pairs) -> torch.Tensor:
     return torch.stack([torch.dot(u, v) for u, v in pairs])
 
 
-def _dist_pcg_pipelined_local(dh: DistHierarchy, b, tol: float,
-                              maxiter: int) -> CGResult:
-    """Sharded single-reduction PCG (Chronopoulos–Gear) from x = 0: γ, δ and
-    ‖r‖² of the entry state in one shard-order sum and one host read per
-    iteration (α, β on the host in float32). As the reference's, the exit
-    test ‖r‖² > tol²·‖b‖² reads the entry residual, so the count can lag
-    standard PCG's by one; the exit residual is recomputed exactly."""
-    f = np.float32
-    a = dh.levels[0].a
-    d = dh.nshards
-    x = _map(torch.zeros_like, b)
-    r = b
-    rn2 = f(pdot(b, b).item())          # ‖r₀‖² = ‖b‖²
-    bnorm2 = f(1.0) if rn2 == 0 else rn2
-    threshold = f(tol) * f(tol) * bnorm2
-    u = dist_vcycle(dh, r)
-    w = dist_spmv(a, u, d)
-    p = _map(torch.zeros_like, b)
-    s = _map(torch.zeros_like, b)
-    history = [float(np.sqrt(rn2))]
-    g_prev = a_prev = f(1.0)
-    k = 0
-    while rn2 > threshold and k < maxiter:
-        gamma, delta, rn2 = _pdots([(r, u), (w, u), (r, r)]).cpu().numpy()
-        if k:
-            history.append(float(np.sqrt(rn2)))
-        beta = f(0.0) if k == 0 else gamma / g_prev
-        alpha = gamma / (delta - beta * gamma / a_prev)
-        p = _map(lambda ui, pi: ui + float(beta) * pi, u, p)
-        s = _map(lambda wi, si: wi + float(beta) * si, w, s)
-        x = _map(lambda xi, pi: xi + float(alpha) * pi, x, p)
-        r = _map(lambda ri, si: ri - float(alpha) * si, r, s)
-        u = dist_vcycle(dh, r)
-        w = dist_spmv(a, u, d)
-        g_prev, a_prev = gamma, alpha
-        k += 1
-    rnorm = pnorm(r).item()
-    if k:
-        history.append(rnorm)
-    return CGResult(x=x, iters=k, rel_residual=float(rnorm / np.sqrt(bnorm2)),
-                    history=history)
+def _pipelined_program(apply_a, precond, maxiter: int) -> G.Program:
+    """Sharded single-reduction PCG (Chronopoulos–Gear): γ, δ and ‖r‖² of
+    the entry state in one shard-order sum per iteration, α and β from them
+    as f32 device scalars. As the reference's, the exit test ‖r‖² >
+    tol²·‖b‖² reads the entry residual, so the count can lag standard
+    PCG's by one; the exit residual is recomputed exactly at the end."""
+
+    def start(b, tol, x0):
+        if x0 is not None:
+            raise ValueError("the sharded PCG starts from x = 0")
+        rn2 = pdot(b, b)                   # ‖r₀‖² = ‖b‖²
+        bnorm2 = G.guard(rn2)
+        u = precond(b)
+        hist, k = G.new_history(maxiter, torch.sqrt(rn2))
+        one = torch.ones_like(rn2)
+        return dict(x=_map(torch.zeros_like, b), r=b, u=u, w=apply_a(u),
+                    p=_map(torch.zeros_like, b), s=_map(torch.zeros_like, b),
+                    g_prev=one, a_prev=one.clone(), k=k,
+                    active=(rn2 > tol * tol * bnorm2) & (k < maxiter),
+                    hist=hist, thr=tol * tol * bnorm2, bnorm2=bnorm2)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        k0 = st["k"]
+        gamma, delta, rn2 = _pdots([(st["r"], st["u"]), (st["w"], st["u"]),
+                                    (st["r"], st["r"])]).unbind()
+        G.record(st["hist"], k0, torch.sqrt(rn2), st["active"] & (k0 > 0))
+        beta = torch.where(k0 == 0, torch.zeros_like(gamma),
+                           gamma / st["g_prev"])
+        alpha = gamma / (delta - beta * gamma / st["a_prev"])
+        p = _map(lambda ui, pi: ui + beta * pi, st["u"], st["p"])
+        s = _map(lambda wi, si: wi + beta * si, st["w"], st["s"])
+        x = _map(lambda xi, pi: xi + alpha * pi, st["x"], p)
+        r = _map(lambda ri, si: ri - alpha * si, st["r"], s)
+        u = precond(r)
+        w = apply_a(u)
+        k, active = G.advance(st, maxiter, rn2 > st["thr"])
+        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
+                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
+                    s=sel(s, st["s"]), g_prev=sel(gamma, st["g_prev"]),
+                    a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
+
+    def finish(st):
+        st = dict(st, rnorm=pnorm(st["r"]))
+        k, history, rnorm, bnorm2 = host_copy(st, "rnorm", "bnorm2")
+        history = history[:k] + [float(rnorm)] if k else history[:1]
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(float(rnorm) / np.sqrt(bnorm2)),
+                        history=history)
+
+    return G.Program(start, step, finish)
 
 
 def _as_shards(mesh, dh: DistHierarchy, v):
@@ -399,21 +393,28 @@ def _as_shards(mesh, dh: DistHierarchy, v):
 
 
 def make_dist_solver(mesh, dh: DistHierarchy, tol: float = 1e-6,
-                     maxiter: int = 200, variant: str = "standard"):
+                     maxiter: int = 200, variant: str = "standard",
+                     graph: bool = True):
     """The sharded AMG-PCG: ``solve(dh, b[, tol]) → CGResult``. ``b`` is a
     shard list or a full vector (then x comes back full); ``tol`` is the
     default tolerance, overridable per call (the IR outer loop).
-    ``variant="pipelined"`` is the single-reduction PCG: one shard sum and
-    one host read per iteration."""
+    ``variant="pipelined"`` is the single-reduction PCG: one shard sum per
+    iteration. ``graph=True``: captured blocks on CUDA, cached on the
+    ``DistHierarchy`` passed to ``solve`` (the per-call ``tol`` an input of
+    the graphs), the eager block loop on CPU; ``graph=False``: the
+    per-iteration loop."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r} (supported: "
                          f"{', '.join(VARIANTS)})")
-    local = (_dist_pcg_pipelined_local if variant == "pipelined"
-             else _dist_pcg_local)
 
     def solve(dh, b, tol_s=None):
         bs, full = _as_shards(mesh, dh, b)
-        res = local(dh, bs, tol if tol_s is None else tol_s, maxiter)
+        leaves = bs if isinstance(bs, list) else [bs]
+        key = ("dist", variant, tuple(tuple(t.shape) for t in leaves),
+               leaves[0].dtype, int(maxiter))
+        res = G.run(_programs(dh, maxiter, variant), bs,
+                    tol if tol_s is None else tol_s, graph=graph, owner=dh,
+                    key=key)
         return res._replace(x=mesh.gather(res.x)) if full else res
 
     return solve

@@ -14,7 +14,9 @@ the row's column order on a general-sparsity level, each a fixed sum per
 row (no atomics), after the plain exchange. It runs once per outer pass
 (2–3 per solve), not per V-cycle. The norm is one shard-order sum; the
 unit residual goes to the f32 sharded AMG-PCG (:mod:`.dist`) at an
-adaptive tolerance.
+adaptive tolerance, an input of its captured graphs. On the card b and x
+travel through pinned host buffers, kept per solver and reused across
+solves, with asynchronous copies.
 
 The reference forms this residual from its f32 level-0 values on both mesh
 paths (``omp_amg_tpu/parallel/dist_ir.py:41``, ``:94``); it also rescales
@@ -181,13 +183,44 @@ def supports_df64(dh: DistHierarchy) -> bool:
     return not lv0.sharded
 
 
+class PinnedStage:
+    """Pinned host buffers by name, reused while the shape holds: the b
+    and x copies of a solver on the card (``non_blocking`` both ways)."""
+
+    def __init__(self):
+        self.bufs = {}
+
+    def buffer(self, name: str, shape, dtype=torch.float64) -> torch.Tensor:
+        buf = self.bufs.get(name)
+        if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
+            buf = self.bufs[name] = torch.empty(shape, dtype=dtype,
+                                                pin_memory=True)
+        return buf
+
+    def to_device(self, a: np.ndarray, device) -> torch.Tensor:
+        """The host array ``a`` on ``device`` through the pinned buffer."""
+        buf = self.buffer("in", a.shape)
+        buf.numpy()[...] = a
+        return buf.to(device, non_blocking=True)
+
+    def to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A device vector as a host array (a copy: the buffer is reused by
+        the next solve)."""
+        buf = self.buffer("out", t.shape, t.dtype)
+        buf.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return buf.numpy().copy()
+
+
 def make_dist_ir_solver(mesh, dh: DistHierarchy, a64, tol: float = 1e-8,
                         inner_tol: float = 1e-6, maxiter: int = 200,
-                        max_outer: int = 8, variant: str = "standard"):
+                        max_outer: int = 8, variant: str = "standard",
+                        graph: bool = True):
     """The certified distributed solver: ``solve(dh, b) → IRResult`` for a
     host f64 right-hand side ``b`` (level 0's global, padded rows); x comes
     back as a host f64 array. ``a64`` is the user's operator in float64 in
-    ``dh``'s level-0 layout (:func:`fine_f64`)."""
+    ``dh``'s level-0 layout (:func:`fine_f64`); ``variant``, ``graph``: the
+    inner PCG's (:func:`.dist.make_dist_solver`)."""
     if not supports_df64(dh):
         raise NotImplementedError("the certified distributed solve needs a "
                                   "z-slab, halo, gather or replicated fine "
@@ -195,15 +228,17 @@ def make_dist_ir_solver(mesh, dh: DistHierarchy, a64, tol: float = 1e-8,
     if not isinstance(a64, (SlabF64, EllF64)):
         raise TypeError("a64: the fine operator from fine_f64")
     inner = make_dist_solver(mesh, dh, tol=inner_tol, maxiter=maxiter,
-                             variant=variant)
+                             variant=variant, graph=graph)
     sharded = dh.levels[0].sharded
+    stage = PinnedStage() if mesh.device.type == "cuda" else None
 
     def solve(dh_in, b) -> IRResult:
         b = np.asarray(b, np.float64)
         bnorm = float(np.linalg.norm(b))
         if bnorm == 0:
             return IRResult(np.zeros_like(b), 0, [], 0.0, [])
-        bt = torch.from_numpy(b)
+        bt = (torch.from_numpy(b) if stage is None
+              else stage.to_device(b, mesh.device))
         bs = mesh.shard(bt) if sharded else bt.to(mesh.device)
         xs = ([torch.zeros_like(t) for t in bs] if sharded
               else torch.zeros_like(bs))
@@ -222,7 +257,8 @@ def make_dist_ir_solver(mesh, dh: DistHierarchy, a64, tol: float = 1e-8,
                 xs = [x + rnorm * e.double() for x, e in zip(xs, res.x)]
             else:
                 xs = xs + rnorm * res.x.double()
-        x = (mesh.gather(xs) if sharded else xs).cpu().numpy()
+        x = mesh.gather(xs) if sharded else xs
+        x = x.cpu().numpy() if stage is None else stage.to_host(x)
         return IRResult(x, len(inner_iters), inner_iters, rel, histories)
 
     return solve

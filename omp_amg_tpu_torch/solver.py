@@ -37,6 +37,9 @@
 
 On CUDA the certified loop of a ``Dia`` operator forms its f64 residual on
 the card (``residual="auto"``); ``residual="host"`` forms it on the host.
+On CUDA the inner PCG runs as captured blocks of iterations (CUDA graphs
+cached on the hierarchy; ``solve(..., graph=False)`` runs the per-iteration
+loop instead); a refresh drops the graphs with the hierarchy they read.
 
 The device defaults to ``"cuda"``; without CUDA that raises, and nothing
 moves to the CPU on its own: a CPU run passes ``device="cpu"`` (with a mesh,
@@ -57,6 +60,7 @@ from .amg.refresh import PatternChangedError, SetupCache, amg_refresh
 from .amg.vcycle import vcycle
 from .native import CsrMatvec
 from .solvers.cg import amg_pcg
+from .solvers.graph import drop_graphs
 from .solvers.ir import solve_ir, solve_ir_device
 from .sparse.formats import Dia
 from .utils.device import resolve_device
@@ -89,6 +93,7 @@ class AMGSolver:
         self._dist = None
         self._dist_vcycle = None
         self._cache = None
+        self._stage = None
         if flavor != "host":
             raise NotImplementedError(f"flavor={flavor!r} is not ported yet")
         if refreshable and grid is not None:
@@ -220,7 +225,8 @@ class AMGSolver:
 
     def solve(self, b, tol: float = 1e-8, maxiter: int = 500,
               certify: bool = True, residual: str = "auto",
-              device_result: bool = False, variant: str = "standard"):
+              device_result: bool = False, variant: str = "standard",
+              graph: bool = True):
         """Solve A x = b.
 
         ``certify=True`` (default) runs the f64 defect-correction outer loop,
@@ -233,7 +239,9 @@ class AMGSolver:
         operator is a ``Dia``, else the host loop. ``device_result=True``
         (device loop only) returns x as a float64 tensor on the device. On a
         mesh the certified loop always runs on the device. ``variant``:
-        ``"standard"`` or ``"pipelined"`` (single-reduction) PCG.
+        ``"standard"`` or ``"pipelined"`` (single-reduction) PCG. ``graph``:
+        on CUDA the captured PCG blocks (default) or, ``False``, the
+        per-iteration loop.
         """
         if residual not in ("auto", "host", "device"):
             raise ValueError(f"residual={residual!r} (supported: auto, host, "
@@ -243,9 +251,14 @@ class AMGSolver:
                 raise ValueError("the distributed certified loop forms its "
                                  "residual on the device and returns x on "
                                  "the host")
-            if isinstance(b, torch.Tensor):
-                b = b.detach().cpu().numpy()
-            return self._solve_dist(b, tol, maxiter, certify, variant)
+            if isinstance(b, torch.Tensor) and b.is_cuda:
+                from .parallel.dist_ir import PinnedStage
+
+                self._stage = self._stage or PinnedStage()
+                b = self._stage.to_host(b.detach())
+            elif isinstance(b, torch.Tensor):
+                b = b.detach().numpy()
+            return self._solve_dist(b, tol, maxiter, certify, variant, graph)
         on_device = residual == "device" or (
             residual == "auto" and isinstance(self.a, Dia)
             and self.device.type == "cuda")
@@ -257,13 +270,13 @@ class AMGSolver:
                 res = solve_ir_device(self.a_f64, b, self.hierarchy, tol=tol,
                                       maxiter=maxiter, variant=variant,
                                       a_dev=self.a_dev,
-                                      to_host=not device_result)
+                                      to_host=not device_result, graph=graph)
             else:
                 if isinstance(b, torch.Tensor):
                     b = b.detach().cpu().numpy()
                 res = solve_ir(self.a_host, np.asarray(b, np.float64),
                                self.a_dev, self.hierarchy, tol=tol,
-                               maxiter=maxiter, variant=variant)
+                               maxiter=maxiter, variant=variant, graph=graph)
             self.last_info = {
                 "iters": sum(res.inner_iters),
                 "inner_iters": list(res.inner_iters),
@@ -276,7 +289,7 @@ class AMGSolver:
             return res.x
         rhs = torch.as_tensor(b).detach().to(self.device, torch.float32)
         res = amg_pcg(self.a_dev, rhs, self.hierarchy, tol=tol,
-                      maxiter=maxiter, variant=variant)
+                      maxiter=maxiter, variant=variant, graph=graph)
         self.last_info = {
             "iters": res.iters,
             "rel_residual": res.rel_residual,
@@ -284,7 +297,7 @@ class AMGSolver:
         }
         return res.x
 
-    def _solve_dist(self, b, tol, maxiter, certify, variant):
+    def _solve_dist(self, b, tol, maxiter, certify, variant, graph):
         from .parallel.dist import make_dist_solver
         from .parallel.dist_ir import make_dist_ir_solver
         from .parallel.partition import pad_vector, unpad_vector
@@ -293,11 +306,11 @@ class AMGSolver:
         bp = pad_vector(np.asarray(b, np.float64), self.hierarchy,
                         self.mesh.size)
         if certify:
-            key = ("ir", tol, int(maxiter), variant)
+            key = ("ir", tol, int(maxiter), variant, graph)
             if self._dist is None or self._dist[0] != key:
                 self._dist = (key, make_dist_ir_solver(
                     self.mesh, self.hierarchy, self.dist_a_f64, tol=tol,
-                    maxiter=maxiter, variant=variant))
+                    maxiter=maxiter, variant=variant, graph=graph))
             res = self._dist[1](self.hierarchy, bp)
             self.last_info = {
                 "iters": sum(res.inner_iters),
@@ -310,11 +323,11 @@ class AMGSolver:
                 "residual_histories": res.histories,
             }
             return unpad_vector(res.x, n)
-        key = (int(maxiter), variant)
+        key = (int(maxiter), variant, graph)
         if self._dist is None or self._dist[0] != key:
             self._dist = (key, make_dist_solver(self.mesh, self.hierarchy,
                                                 tol=tol, maxiter=maxiter,
-                                                variant=variant))
+                                                variant=variant, graph=graph))
         rhs = torch.from_numpy(bp.astype(np.float32))
         res = self._dist[1](self.hierarchy, rhs, tol)
         self.last_info = {"iters": res.iters,
@@ -329,28 +342,36 @@ class AMGSolver:
         (construct with ``refreshable=True``); when the new values change a
         strength, interpolation or Galerkin pattern it warns and runs a
         fresh setup, with a new cache. The certified loop then reads the
-        new operator."""
+        new operator. The captured PCG graphs of the old hierarchy are
+        dropped with it: they read its tensors."""
         if self._cache is None:
             raise ValueError("construct AMGSolver(..., refreshable=True) "
                              "to enable refresh"
                              + (" (on a mesh: the classical PMIS setup)"
                                 if self.mesh is not None else ""))
+        old = self.hierarchy
         if self.mesh is not None:
-            return self._refresh_dist(a_new)
+            self._refresh_dist(a_new)
+        else:
+            self._refresh(a_new)
+        drop_graphs(old)
+        self.a = a_new
+        self._a_host = None
+        self._a_f64 = None
+        return self
+
+    def _refresh(self, a_new):
+        """The single-device branch of :meth:`refresh`."""
         try:
             self.hierarchy = amg_refresh(a_new, self._cache)
         except PatternChangedError as e:
             import warnings
 
             warnings.warn(f"refresh pattern guard tripped ({e}); running "
-                          "a full re-setup", stacklevel=2)
+                          "a full re-setup", stacklevel=3)
             self._cache = SetupCache()
             self.hierarchy = amg_setup(a_new, self.params, device=self.device,
                                        cache=self._cache)
-        self.a = a_new
-        self._a_host = None
-        self._a_f64 = None
-        return self
 
     def _refresh_dist(self, a_new):
         """The mesh branch of :meth:`refresh`: the per-shard value-only
@@ -374,10 +395,6 @@ class AMGSolver:
                 cache=self._cache, **part_kw)
         self._dist = None
         self._dist_vcycle = None
-        self.a = a_new
-        self._a_host = None
-        self._a_f64 = None
-        return self
 
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
         """Apply one V-cycle: z = M⁻¹ r (for external Krylov loops)."""

@@ -1,11 +1,22 @@
 """Conjugate gradient solvers (counterpart of ``omp_amg_tpu/solvers/cg.py``:
 ``pcg``, ``pcg_pipelined``, ``amg_pcg`` and ``cg``).
 
-Python loops over device tensors. Standard PCG keeps α, β and (r, z) on the
-device; its one host synchronisation per iteration is the residual norm of
-the convergence check. The pipelined (single-reduction) PCG forms γ, δ and
-‖r‖² at one point per iteration and reads them with one host copy, then
-computes α and β on the host in float32, as the reference's f32 scalars.
+Each variant is a start step and an iteration step over a device state
+(:mod:`.graph`): every scalar, the iteration counter, the exit flag and the
+residual history stay on the device. Standard PCG forms α, β and the
+residual norm there; the pipelined (single-reduction) PCG forms γ, δ and
+‖r‖² at one point per iteration and α, β from them as f32 device scalars,
+the IEEE f32 operations of the reference's traced scalars
+(``omp_amg_tpu/solvers/cg.py:107-108``), in the order the host loop of
+earlier versions computed them in numpy float32, so the iterates are bit
+for bit that loop's.
+
+``amg_pcg`` and ``cg`` run the captured blocks of :mod:`.graph` on CUDA
+(``graph=True``, the default: CUDA graphs cached on the hierarchy, or on
+the operator for ``cg``), the same steps as an eager block loop on CPU
+tensors, and with ``graph=False`` the per-iteration loop (one host read of
+the exit flag per iteration). ``pcg`` and ``pcg_pipelined``, which take any
+preconditioner callable, run the per-iteration loop.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from ..amg.hierarchy import Hierarchy
 from ..amg.vcycle import vcycle
 from ..ops.spmv import spmv
 from ..ops.vecops import axpy, dot
+from . import graph as G
 
 VARIANTS = ("standard", "pipelined")
 
@@ -30,104 +42,174 @@ class CGResult(NamedTuple):
     history: list            # ‖r_k‖ per iteration, k = 0..iters
 
 
-def _start(a, b, x0):
-    if x0 is None:
-        return torch.zeros_like(b), b.clone()    # r = b − A·0, bitwise
-    return x0, b - spmv(a, x0)
+def host_copy(st: dict, *names) -> tuple:
+    """The one host copy at the end: (k, history[0..k], and the named
+    scalars as np.float32)."""
+    hist = st["hist"]
+    packed = torch.cat([hist, torch.stack([st[n] for n in names]),
+                        st["k"].to(hist.dtype).view(1)]).cpu().numpy()
+    k = int(packed[-1])
+    return (k, [float(h) for h in packed[:k + 1]],
+            *(np.float32(v) for v in packed[len(hist):-1]))
 
 
-def _bnorm(b: torch.Tensor) -> np.float32:
-    bnorm = np.float32(torch.linalg.vector_norm(b).item())
-    return np.float32(1.0) if bnorm == 0 else bnorm
+def standard_program(apply_a, precond: Callable, maxiter: int, *,
+                     dot=dot, norm=torch.linalg.vector_norm,
+                     vmap=G.vmap) -> G.Program:
+    """Standard PCG as start and iteration steps over the products
+    ``apply_a`` and ``precond``; ``dot``, ``norm`` and ``vmap`` (per-vector
+    maps) are the single-device ones or, sharded, the shard-order ones of
+    :mod:`..parallel.dist`. The exit test is the reference's f32
+    ‖r‖ > tol·‖b‖."""
+
+    def start(b, tol, x0):
+        if x0 is None:
+            x, r = vmap(torch.zeros_like, b), vmap(torch.clone, b)
+        else:
+            x = x0
+            r = vmap(torch.sub, b, apply_a(x0))
+        bnorm = G.guard(norm(b))
+        z = precond(r)
+        rnorm = norm(r)
+        hist, k = G.new_history(maxiter, rnorm)
+        thr = tol * bnorm
+        return dict(x=x, r=r, z=z, p=z, rz=dot(r, z), k=k,
+                    active=(rnorm > thr) & (k < maxiter), hist=hist,
+                    thr=thr, bnorm=bnorm)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        q = apply_a(p)
+        alpha = rz / dot(p, q)
+        x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
+        r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
+        z_n = precond(r_n)
+        rz_n = dot(r_n, z_n)
+        beta = rz_n / rz
+        p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
+        rnorm = norm(r_n)
+        k, active = G.advance(st, maxiter, rnorm > st["thr"])
+        G.record(st["hist"], k, rnorm, st["active"])
+        return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
+                    p=sel(p_n, p), rz=sel(rz_n, rz), k=k, active=active)
+
+    def finish(st):
+        k, history, bnorm = host_copy(st, "bnorm")
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(history[-1] / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
+
+
+def pipelined_program(a, precond: Callable, maxiter: int) -> G.Program:
+    """Single-reduction PCG (Chronopoulos–Gear) as start and iteration
+    steps: γ = (r, u), δ = (w, u) and ‖r‖² of the updated state at one
+    reduction point per iteration, α_k = γ_k / (δ_k − β_k·γ_k/α_{k−1}); the
+    exit test is the reference's f32 √‖r‖² > tol·‖b‖ on the updated
+    residual."""
+
+    def reduce(r, u, w):
+        return torch.stack([dot(r, u), dot(w, u), dot(r, r)]).unbind()
+
+    def start(b, tol, x0):
+        if x0 is None:
+            x, r = torch.zeros_like(b), b.clone()
+        else:
+            x, r = x0, b - spmv(a, x0)
+        bnorm = G.guard(torch.linalg.vector_norm(b))
+        u = precond(r)
+        w = spmv(a, u)
+        gamma, delta, rn2 = reduce(r, u, w)
+        rnorm = torch.sqrt(rn2)
+        hist, k = G.new_history(maxiter, rnorm)
+        thr = tol * bnorm
+        one = torch.ones_like(rnorm)
+        return dict(x=x, r=r, u=u, w=w, p=torch.zeros_like(b),
+                    s=torch.zeros_like(b), gamma=gamma, delta=delta,
+                    g_prev=one, a_prev=one.clone(), k=k,
+                    active=(rnorm > thr) & (k < maxiter), hist=hist,
+                    thr=thr, bnorm=bnorm)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        gamma, delta = st["gamma"], st["delta"]
+        beta = torch.where(st["k"] == 0, torch.zeros_like(gamma),
+                           gamma / st["g_prev"])
+        alpha = gamma / (delta - beta * gamma / st["a_prev"])
+        p = axpy(beta, st["p"], st["u"])
+        s = axpy(beta, st["s"], st["w"])
+        x = axpy(alpha, p, st["x"])
+        r = axpy(-alpha, s, st["r"])
+        u = precond(r)
+        w = spmv(a, u)
+        g_n, d_n, rn2 = reduce(r, u, w)
+        rnorm = torch.sqrt(rn2)
+        k, active = G.advance(st, maxiter, rnorm > st["thr"])
+        G.record(st["hist"], k, rnorm, st["active"])
+        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
+                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
+                    s=sel(s, st["s"]), gamma=sel(g_n, gamma),
+                    delta=sel(d_n, delta), g_prev=sel(gamma, st["g_prev"]),
+                    a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
+
+    def finish(st):
+        k, history, bnorm = host_copy(st, "bnorm")
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(np.float32(history[-1]) / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
 
 
 def pcg(a, b: torch.Tensor, precond: Callable, tol: float = 1e-8,
         maxiter: int = 500, x0=None) -> CGResult:
     """Solve A x = b with preconditioner ``precond`` (M⁻¹ apply, a fixed
-    SPD linear operator)."""
-    x, r = _start(a, b, x0)
-    bnorm = _bnorm(b)
-    # the reference compares ‖r‖ > tol·‖b‖ in float32
-    threshold = float(np.float32(tol) * bnorm)
-    z = precond(r)
-    p = z
-    rz = dot(r, z)
-    rnorm = torch.linalg.vector_norm(r).item()
-    history = [rnorm]
-    k = 0
-    while rnorm > threshold and k < maxiter:
-        q = spmv(a, p)
-        alpha = rz / dot(p, q)
-        x = x + alpha * p
-        r = r - alpha * q
-        z = precond(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        k += 1
-        rnorm = torch.linalg.vector_norm(r).item()
-        history.append(rnorm)
-    return CGResult(x=x, iters=k, rel_residual=float(rnorm / bnorm),
-                    history=history)
-
-
-def _reduce(r, u, w):
-    """γ = (r, u), δ = (w, u) and ‖r‖², formed together and read with one
-    host copy: float32 numpy scalars."""
-    g, d, rn2 = torch.stack([dot(r, u), dot(w, u), dot(r, r)]).cpu().numpy()
-    return g, d, rn2
+    SPD linear operator): the per-iteration loop."""
+    return G.run(standard_program(lambda v: spmv(a, v), precond, maxiter),
+                 b, tol, x0, graph=False)
 
 
 def pcg_pipelined(a, b: torch.Tensor, precond: Callable, tol: float = 1e-8,
                   maxiter: int = 500, x0=None) -> CGResult:
-    """Single-reduction PCG (Chronopoulos–Gear): γ = (r, u), δ = (w, u) and
-    ‖r‖² at one reduction point per iteration, α from the recurrence
-    α_k = γ_k / (δ_k − β_k·γ_k/α_{k−1}). The same iterates as standard PCG
-    in exact arithmetic; the exit test is the reference's f32
-    √‖r‖² > tol·‖b‖ on the updated residual."""
-    f = np.float32
-    x, r = _start(a, b, x0)
-    bnorm = _bnorm(b)
-    threshold = f(tol) * bnorm
-    u = precond(r)
-    w = spmv(a, u)
-    p = torch.zeros_like(b)
-    s = torch.zeros_like(b)
-    gamma, delta, rn2 = _reduce(r, u, w)
-    history = [float(np.sqrt(rn2))]
-    g_prev = a_prev = f(1.0)
-    k = 0
-    while np.sqrt(rn2) > threshold and k < maxiter:
-        beta = f(0.0) if k == 0 else gamma / g_prev
-        alpha = gamma / (delta - beta * gamma / a_prev)
-        p = axpy(float(beta), p, u)
-        s = axpy(float(beta), s, w)
-        x = axpy(float(alpha), p, x)
-        r = axpy(float(-alpha), s, r)
-        u = precond(r)
-        w = spmv(a, u)
-        g_prev, a_prev = gamma, alpha
-        gamma, delta, rn2 = _reduce(r, u, w)
-        k += 1
-        history.append(float(np.sqrt(rn2)))
-    return CGResult(x=x, iters=k, rel_residual=float(np.sqrt(rn2) / bnorm),
-                    history=history)
+    """Single-reduction PCG (:func:`pipelined_program`): the per-iteration
+    loop. The same iterates as standard PCG in exact arithmetic."""
+    return G.run(pipelined_program(a, precond, maxiter), b, tol, x0,
+                 graph=False)
+
+
+def _key(name, a, b, x0, maxiter):
+    return (name, id(a), tuple(b.shape), b.dtype, x0 is None, int(maxiter))
 
 
 def amg_pcg(a, b: torch.Tensor, hier: Hierarchy, tol: float = 1e-8,
-            maxiter: int = 500, x0=None,
-            variant: str = "standard") -> CGResult:
+            maxiter: int = 500, x0=None, variant: str = "standard",
+            graph: bool = True) -> CGResult:
     """PCG with M⁻¹ = one cycle of ``hier``; ``variant="pipelined"`` is the
-    single-reduction PCG (:func:`pcg_pipelined`)."""
+    single-reduction PCG. ``graph=True``: captured blocks on CUDA, cached on
+    ``hier`` (keyed by the operator, shape, dtype, ``maxiter``, variant and
+    block size; ``tol`` is an input of the graphs), the eager block loop on
+    CPU tensors; ``graph=False``: the per-iteration loop."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r} (supported: "
                          f"{', '.join(VARIANTS)})")
-    fn = pcg_pipelined if variant == "pipelined" else pcg
-    return fn(a, b, precond=lambda r: vcycle(hier, r), tol=tol,
-              maxiter=maxiter, x0=x0)
+
+    def precond(r):
+        return vcycle(hier, r)
+
+    program = (pipelined_program(a, precond, maxiter)
+               if variant == "pipelined" else
+               standard_program(lambda v: spmv(a, v), precond, maxiter))
+    return G.run(program, b, tol, x0, graph=graph, owner=hier,
+                 key=_key(variant, a, b, x0, maxiter), keep=(a,))
 
 
 def cg(a, b: torch.Tensor, tol: float = 1e-8, maxiter: int = 500,
-       x0=None) -> CGResult:
-    """Unpreconditioned CG (the baseline)."""
-    return pcg(a, b, precond=lambda r: r, tol=tol, maxiter=maxiter, x0=x0)
+       x0=None, graph: bool = True) -> CGResult:
+    """Unpreconditioned CG (the baseline); ``graph`` as in
+    :func:`amg_pcg`, the graphs cached on the operator ``a``."""
+    return G.run(standard_program(lambda v: spmv(a, v), lambda r: r,
+                                  maxiter),
+                 b, tol, x0, graph=graph, owner=a,
+                 key=_key("cg", a, b, x0, maxiter))

@@ -1,0 +1,299 @@
+"""The captured-block runner: the port's counterpart of the reference's
+jitted ``lax.while_loop`` PCG (``omp_amg_tpu/solvers/cg.py:64``, ``:121``;
+sharded ``omp_amg_tpu/parallel/dist.py:377``, ``:410``).
+
+A PCG variant is a :class:`Program` of three functions over a state (a
+dict of device tensors, or of per-shard lists of them):
+
+- ``start(b, tol, x0)``: r₀, the first preconditioned vector, the first
+  scalars, an int32 iteration counter ``k``, a bool ``active`` flag, a
+  history of ``maxiter + 1`` norms with entry 0 written, and the f32
+  threshold formed from the f32 tolerance tensor ``tol`` and ‖b‖ (zero-b
+  guarded), all on the device;
+- ``step(state, masked)``: one iteration. With ``masked=True`` every update
+  is ``torch.where(active, new, old)``, ``k`` grows only while active, the
+  history entry is written at a device index, and ``active`` is recomputed
+  from the variant's own exit test and ``k < maxiter``; an iteration run
+  after the exit (a *frozen* one) launches its kernels and changes nothing.
+  With ``masked=False`` (the caller knows the state is active) the vector
+  and scalar updates are plain;
+- ``finish(state)``: one host copy of ``k``, the history and the scalars of
+  the result, and the :class:`~.cg.CGResult`.
+
+:func:`run` drives a program three ways, all through the same functions:
+
+- ``graph=False``: the per-iteration loop, one unmasked step per host read
+  of ``active``;
+- ``graph=True`` on CPU tensors: the eager block loop, ``BLOCK`` masked
+  steps per host read of ``active``, the arithmetic the graph records;
+- ``graph=True`` on CUDA tensors: :class:`Captured`, two CUDA graphs over
+  static buffers (b, the f32 ``tol``, the state), the start and a block of
+  ``BLOCK`` masked steps, captured once per (owner, key) with one private
+  memory pool and cached on the owner (the hierarchy). The host replays the
+  start and then blocks, reads one flag per block, and copies ``k``, the
+  history and the final norm once at the end. A capture failure raises; it
+  never falls back to the eager loop.
+
+The kernel wrappers count their launches while Python runs, that is at
+capture. :class:`Captured` therefore records each counter's increment over
+the capture of the start and of one block, restores the counters (the
+capture executed nothing), and adds the increments on every replay, so the
+counters keep counting the launches the card executed, frozen iterations
+included. The vector or scalar path of ``dia_spmv``, ``remote_halo`` and
+``panel_spmm`` is chosen on the host from ``data_ptr()`` alignment and is
+frozen into the graph at capture; ``path_changed`` says whether the
+captured launches took another path than the eager warm-up's.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..ops import (
+    const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm, remote_halo,
+)
+
+# K, the PCG iterations per captured block. The certified 128³ solves run
+# 8 + 3 (PMIS) and 10 + 4 (structured) inner iterations in 2 outer passes.
+# A block that ends past the exit runs frozen iterations, each as long as a
+# live one (a V-cycle: 0.6–0.9 ms at 128³ on the H100), while each block
+# costs one host read of the flag and one graph launch (tens of µs). K = 4
+# runs 3 + 1 blocks with 1 frozen iteration (PMIS) and 3 + 1 blocks with 2
+# frozen (structured); PERF.md records the measured trade.
+BLOCK = 4
+
+COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
+            remote_halo)
+
+
+class Program(NamedTuple):
+    start: Callable     # (b, tol, x0) -> state
+    step: Callable      # (state, masked) -> state
+    finish: Callable    # state -> CGResult (one host copy)
+
+
+# --- state helpers (a value is a tensor or a per-shard list of tensors) -----
+
+def vmap(fn, *vs):
+    """``fn`` per shard of per-shard lists, or once on tensors."""
+    if isinstance(vs[0], list):
+        return [fn(*t) for t in zip(*vs)]
+    return fn(*vs)
+
+
+def selector(active: torch.Tensor, masked: bool):
+    """``sel(new, old)``: ``torch.where(active, new, old)`` per tensor when
+    masked, else ``new``."""
+    if not masked:
+        return lambda new, old: new
+    return lambda new, old: vmap(lambda n, o: torch.where(active, n, o),
+                                 new, old)
+
+
+def new_history(maxiter: int, first: torch.Tensor):
+    """(history of ``maxiter + 1`` NaNs with entry 0 ``first``, k = 0 as an
+    int32 device scalar)."""
+    hist = torch.full((maxiter + 1,), float("nan"), dtype=first.dtype,
+                      device=first.device)
+    hist[0] = first
+    return hist, torch.zeros((), dtype=torch.int32, device=first.device)
+
+
+def record(hist: torch.Tensor, at: torch.Tensor, value: torch.Tensor,
+           write: torch.Tensor) -> None:
+    """hist[at] = value where ``write`` (0-dim bool), through device
+    indexing: no host int."""
+    i = at.long().view(1)
+    old = hist.index_select(0, i)
+    hist.index_copy_(0, i, torch.where(write, value.view(1), old))
+
+
+def advance(st: dict, maxiter: int, test: torch.Tensor) -> tuple:
+    """(k, active) after a step: k + 1 where active; active while ``test``
+    (the variant's exit test on the updated state) and k < maxiter."""
+    act = st["active"]
+    k = st["k"] + act.to(torch.int32)
+    return k, act & test & (k < maxiter)
+
+
+def guard(norm: torch.Tensor) -> torch.Tensor:
+    """A norm of b with the zero-b guard (0 → 1)."""
+    return torch.where(norm == 0, torch.ones_like(norm), norm)
+
+
+def _leaves(v):
+    return v if isinstance(v, list) else [v]
+
+
+def _assign(dst: dict, src: dict) -> None:
+    for name, v in src.items():
+        for d, s in zip(_leaves(dst[name]), _leaves(v)):
+            if d is not s:
+                d.copy_(s)
+
+
+def _clone(v):
+    return [t.clone() for t in v] if isinstance(v, list) else v.clone()
+
+
+def _device(v) -> torch.device:
+    return _leaves(v)[0].device
+
+
+# --- the launch counters -----------------------------------------------------
+
+def counts() -> dict:
+    """Every kernel wrapper's counters: {(module, attribute): value}."""
+    return {(m, a): getattr(m, a) for m in COUNTERS
+            for a in ("launches", "scalar_launches") if hasattr(m, a)}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _add(inc: dict) -> None:
+    for (mod, attr), n in inc.items():
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+def _restore(snapshot: dict) -> None:
+    for (mod, attr), n in snapshot.items():
+        setattr(mod, attr, n)
+
+
+# --- the runners -------------------------------------------------------------
+
+def _block(program: Program, st: dict, k_block: int) -> dict:
+    for _ in range(k_block):
+        st = program.step(st, True)
+    return st
+
+
+def _eager(program: Program, b, tol: float, x0, k_block):
+    """The eager loops: ``k_block`` masked steps per read of ``active``, or
+    (``k_block=None``) one unmasked step per read."""
+    st = program.start(b, torch.full((), tol, dtype=torch.float32,
+                                     device=_device(b)), x0)
+    while bool(st["active"]):
+        st = (program.step(st, False) if k_block is None
+              else _block(program, st, k_block))
+    return program.finish(st)
+
+
+class Captured:
+    """The start and a block of ``k_block`` masked steps of ``program``,
+    captured as two CUDA graphs over static buffers shaped like ``b`` (and
+    ``x0``). ``keep``: objects the graphs read that their owner does not
+    hold (kept alive with the graphs)."""
+
+    def __init__(self, program: Program, b, x0, k_block: int, keep=()):
+        dev = _device(b)
+        t0 = time.perf_counter()
+        self.k_block = k_block
+        self.finish = program.finish
+        self.keep = keep
+        self.b = _clone(b)
+        self.x0 = None if x0 is None else _clone(x0)
+        self.tol = torch.ones((), dtype=torch.float32, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        # warm-up on the capture stream: builds the kernel library, the
+        # cuBLAS handle and every host-side cache before capture
+        c0 = counts()
+        with torch.cuda.stream(stream):
+            st = program.start(self.b, self.tol, self.x0)
+            c1 = counts()
+            st = _block(program, st, k_block)
+            c2 = counts()
+        torch.cuda.synchronize(dev)
+        warm = (_delta(c1, c0), _delta(c2, c1))
+        self.state = {name: _clone(v) for name, v in st.items()}
+        del st
+        torch.cuda.empty_cache()    # as the capture does: the pool alone
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        self.start_graph = torch.cuda.CUDAGraph()
+        self.block_graph = torch.cuda.CUDAGraph()
+        c0 = counts()
+        # no garbage collection under capture: a collected object that owns
+        # a CUDA graph or pinned memory frees it, a call the capture forbids
+        # (the graph context collects once before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.start_graph, pool=pool, stream=stream):
+                _assign(self.state, program.start(self.b, self.tol, self.x0))
+            c1 = counts()
+            with torch.cuda.graph(self.block_graph, pool=pool, stream=stream):
+                _assign(self.state, _block(program, self.state, k_block))
+            c2 = counts()
+        finally:
+            if collecting:
+                gc.enable()
+        _restore(c0)
+        self.start_inc, self.block_inc = _delta(c1, c0), _delta(c2, c1)
+        self.stats = {
+            "capture_s": time.perf_counter() - t0,
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+            "solves": 0, "blocks": 0, "frozen": 0, "enqueue_s": 0.0,
+            "path_changed": warm != (self.start_inc, self.block_inc),
+        }
+
+    def run(self, b, tol: float, x0=None):
+        for d, s in zip(_leaves(self.b), _leaves(b)):
+            d.copy_(s, non_blocking=True)
+        if x0 is not None:
+            for d, s in zip(_leaves(self.x0), _leaves(x0)):
+                d.copy_(s, non_blocking=True)
+        self.tol.fill_(tol)
+        self.start_graph.replay()
+        _add(self.start_inc)
+        blocks = 0
+        while True:
+            t0 = time.perf_counter()
+            self.block_graph.replay()
+            self.stats["enqueue_s"] += time.perf_counter() - t0
+            _add(self.block_inc)
+            blocks += 1
+            if not bool(self.state["active"]):
+                break
+        res = self.finish(self.state)
+        self.stats["solves"] += 1
+        self.stats["blocks"] += blocks
+        self.stats["frozen"] += blocks * self.k_block - res.iters
+        # the state buffers are overwritten by the next solve
+        return res._replace(x=_clone(res.x))
+
+
+def run(program: Program, b, tol: float, x0=None, *, graph: bool = True,
+        owner=None, key=None, keep=()):
+    """Run ``program`` on ``b`` (see the module docstring). On CUDA with
+    ``graph=True`` the captured graphs are cached on ``owner`` under ``key``
+    (with the block size ``BLOCK``)."""
+    if not graph:
+        return _eager(program, b, tol, x0, None)
+    if _device(b).type != "cuda":
+        return _eager(program, b, tol, x0, BLOCK)
+    cache = owner.__dict__.setdefault("_graphs", {})
+    key = (key, BLOCK)
+    runner = cache.get(key)
+    if runner is None:
+        runner = cache[key] = Captured(program, b, x0, BLOCK, keep)
+    return runner.run(b, tol, x0)
+
+
+def graph_stats(owner) -> dict:
+    """{key: stats} of the graphs cached on ``owner``."""
+    return {k: dict(r.stats) for k, r in
+            getattr(owner, "_graphs", {}).items()}
+
+
+def drop_graphs(owner) -> None:
+    """Drop the graphs cached on ``owner`` (a hierarchy about to be
+    replaced: the graphs read its tensors)."""
+    owner.__dict__.pop("_graphs", {}).clear()

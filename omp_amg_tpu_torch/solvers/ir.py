@@ -8,7 +8,10 @@ scaled defect until the f64 target is met. ``solve_ir`` forms the residual
 on the host; ``solve_ir_device`` keeps b, x and the fine operator's planes
 in float64 on the device (native f64: the reference emulates it with
 double-float32 pairs, ``ops/df64.py``, which the port does not carry), so
-one scalar norm per outer pass is all that reaches the host.
+one scalar norm per outer pass is all that reaches the host. Each outer
+pass's inner tolerance τ goes to the captured PCG as an input of its graphs
+(``graph=True``, :mod:`.graph`), so every pass replays the graphs captured
+in the first: the reference's traced ``tol``.
 """
 
 from __future__ import annotations
@@ -34,13 +37,14 @@ class IRResult(NamedTuple):
 
 def solve_ir(a_apply, b, a_dev, hier: Hierarchy, tol: float = 1e-8,
              inner_tol: float = 1e-6, maxiter: int = 200,
-             max_outer: int = 8, variant: str = "standard") -> IRResult:
+             max_outer: int = 8, variant: str = "standard",
+             graph: bool = True) -> IRResult:
     """Solve to f64 tolerance ``tol`` using the f32 device AMG-PCG.
 
     ``a_apply``: the true-residual operator in f64, a callable
     ``v -> A v`` (such as ``native.CsrMatvec``);
     ``a_dev``: the device operator matching ``hier``'s fine level;
-    ``variant``: the PCG variant (:func:`.cg.amg_pcg`).
+    ``variant``, ``graph``: the PCG variant and loop (:func:`.cg.amg_pcg`).
     """
     b = np.asarray(b, dtype=np.float64)
     bnorm = np.linalg.norm(b)
@@ -60,7 +64,7 @@ def solve_ir(a_apply, b, a_dev, hier: Hierarchy, tol: float = 1e-8,
         tau = max(inner_tol, 0.3 * tol / rel)
         rhs = torch.from_numpy((r / scale).astype(np.float32)).to(hier.device)
         res = amg_pcg(a_dev, rhs, hier, tol=tau, maxiter=maxiter,
-                      variant=variant)
+                      variant=variant, graph=graph)
         inner_iters.append(res.iters)
         histories.append(res.history)
         x = x + scale * res.x.cpu().numpy().astype(np.float64)
@@ -89,7 +93,8 @@ def dia_apply_f64(offsets, data: torch.Tensor, x: torch.Tensor,
 def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
                     inner_tol: float = 1e-6, maxiter: int = 200,
                     max_outer: int = 8, variant: str = "standard",
-                    a_dev=None, to_host: bool = True) -> IRResult:
+                    a_dev=None, to_host: bool = True,
+                    graph: bool = True) -> IRResult:
     """Device-resident iterative refinement: the loop of :func:`solve_ir`
     with the true residual r = b − A·x formed on the hierarchy's device in
     native float64, once per outer pass.
@@ -99,7 +104,8 @@ def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
     copy); ``b``: the right-hand side (numpy array or tensor, taken in
     float64); ``a_dev``: the inner PCG's device operator (default: the
     hierarchy's level-0 operator). ``to_host=False`` returns x as a
-    float64 tensor on the device (no host copy of x).
+    float64 tensor on the device (no host copy of x). ``variant``,
+    ``graph``: the PCG variant and loop (:func:`.cg.amg_pcg`).
     """
     if not isinstance(a, Dia):
         raise TypeError("solve_ir_device needs a plain Dia fine operator")
@@ -127,7 +133,7 @@ def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
             break
         tau = max(inner_tol, 0.3 * tol / rel)
         res = amg_pcg(a_dev, (r / rnorm).float(), hier, tol=tau,
-                      maxiter=maxiter, variant=variant)
+                      maxiter=maxiter, variant=variant, graph=graph)
         inner_iters.append(res.iters)
         histories.append(res.history)
         x = x + rnorm * res.x.double()

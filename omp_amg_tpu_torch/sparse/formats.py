@@ -16,6 +16,13 @@ Counterpart of ``omp_amg_tpu/sparse/formats.py`` (``Dia``, ``Csr``,
   exist for the TPU's VMEM lanes; here a tap's validity is index arithmetic
   on (z, y, x), so no mask array is kept.
 
+The public storage API of the reference, on ``Csr`` and ``Dia``:
+``coo_to_csr`` (duplicates summed), ``csr_from_scipy``, ``csr_to_scipy``,
+``dia_from_scipy``, ``dia_to_csr``, ``dia_to_scipy`` and ``diagonal``; the
+constructors put the operator on the card unless told ``device="cpu"``.
+The reference's ``Ell`` is not ported: ELL is the TPU's padded layout, and
+``Csr`` serves on the card.
+
 The host helpers stay numpy/scipy: padded ELL planes use ``col=0, val=0``
 padding, as in the reference.
 """
@@ -29,6 +36,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -226,11 +235,12 @@ def dia_to_device(a: Dia, device) -> Dia:
                dims=a.dims)
 
 
-def csr_from_scipy(m, dtype=torch.float32, *, device) -> Csr:
+def csr_from_scipy(m, dtype=torch.float32, device="cuda") -> Csr:
     """scipy sparse → device ``Csr``. Values round f64 → f32 (→ bf16 when
     ``dtype`` is bfloat16, round to nearest even)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     m = sp.csr_matrix(m)
     vals = torch.from_numpy(np.ascontiguousarray(m.data, np.float32))
     return Csr(
@@ -238,6 +248,26 @@ def csr_from_scipy(m, dtype=torch.float32, *, device) -> Csr:
         indices=torch.from_numpy(np.asarray(m.indices, np.int32)).to(device),
         vals=vals.to(dtype).to(device),
         n_cols=int(m.shape[1]))
+
+
+def csr_to_scipy(a: Csr):
+    """scipy CSR (f64) of a device ``Csr``."""
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((a.vals.detach().to("cpu", torch.float64).numpy(),
+                          a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
+                         shape=a.shape)
+
+
+def coo_to_csr(rows, cols, vals, shape, dtype=torch.float32,
+               device="cuda") -> Csr:
+    """COO assembly → ``Csr``, duplicate entries summed (in f64, before the
+    cast to ``dtype``), as the reference's COO → CSR path."""
+    import scipy.sparse as sp
+
+    a = sp.coo_matrix((np.asarray(vals, np.float64),
+                       (np.asarray(rows), np.asarray(cols))), shape=shape)
+    return csr_from_scipy(a.tocsr(), dtype=dtype, device=device)
 
 
 def csr_from_ell(col: np.ndarray, val: np.ndarray, n_cols: int,
@@ -345,6 +375,52 @@ def dia_to_scipy(a: Dia):
     m.eliminate_zeros()
     m.sort_indices()
     return m
+
+
+def dia_from_scipy(a, dtype=torch.float32, device="cuda") -> Dia:
+    """A square banded scipy matrix → device ``Dia`` (values in ``dtype``,
+    one plane per stored diagonal)."""
+    offsets, planes = dia_planes_from_scipy(a)
+    data = torch.from_numpy(planes).to(dtype)
+    return Dia(data=data.to(resolve_device(device)), offsets=tuple(offsets))
+
+
+def dia_to_csr(a: Dia, device=None) -> Csr:
+    """``Csr`` of a banded operator, its values in the planes' dtype (f32 for
+    host planes), on ``device`` (default: the planes' device, or the card
+    for host planes)."""
+    data = a.data
+    dtype = data.dtype if isinstance(data, torch.Tensor) else torch.float32
+    if device is None:
+        device = data.device if isinstance(data, torch.Tensor) else "cuda"
+    return csr_from_scipy(dia_to_scipy(a), dtype=dtype, device=device)
+
+
+def diagonal(a):
+    """The main diagonal of a ``Dia`` (its centre plane: a tensor, or a
+    numpy array for host planes), a ``ConstDia`` (f32, constant) or a
+    ``Csr`` (a device op: each row's diagonal entries summed, in f32, then
+    cast to the values' dtype)."""
+    if isinstance(a, ConstDia):
+        c = a.coeffs[a.offsets.index(0)] if 0 in a.offsets else 0.0
+        return torch.full((a.n_rows,), c, dtype=torch.float32,
+                          device=a.device)
+    if isinstance(a, Dia):
+        if 0 in a.offsets:
+            return a.data[a.offsets.index(0)]
+        if isinstance(a.data, torch.Tensor):
+            return a.data.new_zeros(a.n_rows)
+        return np.zeros(a.n_rows, a.data.dtype)
+    if isinstance(a, Csr):
+        n = a.n_rows
+        rows = torch.repeat_interleave(
+            torch.arange(n, device=a.vals.device), a.indptr.diff(),
+            output_size=a.nnz)
+        hit = torch.where(a.indices.long() == rows, a.vals.float(), 0.0)
+        return torch.zeros(n, dtype=torch.float32,
+                           device=a.vals.device).index_add_(
+            0, rows, hit).to(a.vals.dtype)
+    raise TypeError(f"no diagonal for {type(a).__name__}")
 
 
 def dia_planes_from_scipy(a):

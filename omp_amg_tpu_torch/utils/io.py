@@ -24,7 +24,9 @@ import torch
 from ..amg.hierarchy import Hierarchy, make_level
 from ..amg.params import AMGParams
 from ..amg.structured import GridProlong, GridRestrict
-from ..sparse.formats import ConstDia, Csr, Dia, const_to_dia, csr_from_scipy
+from ..sparse.formats import (  # noqa: F401  (csr_to_scipy: re-exported)
+    ConstDia, Csr, Dia, const_to_dia, csr_from_scipy, csr_to_scipy,
+)
 from .device import resolve_device
 
 
@@ -37,15 +39,6 @@ def read_matrix_market(path, device="cuda"):
     a = sp.csr_matrix(scipy.io.mmread(path), dtype=np.float64)
     a.sort_indices()
     return csr_from_scipy(a, torch.float32, device=resolve_device(device)), a
-
-
-def csr_to_scipy(a: Csr):
-    """scipy CSR (f64) of a device ``Csr``."""
-    import scipy.sparse as sp
-
-    return sp.csr_matrix((a.vals.detach().to("cpu", torch.float64).numpy(),
-                          a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
-                         shape=a.shape)
 
 
 def write_matrix_market(path, a, comment: str = "") -> None:

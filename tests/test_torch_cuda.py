@@ -781,3 +781,131 @@ def test_cli_on_the_card(capsys, tmp_path):
         assert summary["backend"] == "cuda"
         assert summary["true_rel_residual"] <= 1e-8
         assert all(mod.launches > 0 for mod in used)
+
+
+# --- the captured PCG blocks (solvers/graph.py) -----------------------------
+
+def _same_result(want, got):
+    assert got.iters == want.iters
+    assert got.history == want.history
+    assert got.rel_residual == want.rel_residual
+    xs = got.x if isinstance(got.x, list) else [got.x]
+    ws = want.x if isinstance(want.x, list) else [want.x]
+    assert all(torch.equal(u, v) for u, v in zip(xs, ws))
+
+
+@pytest.mark.parametrize("variant", ["standard", "pipelined", "cg"])
+@pytest.mark.parametrize("path", ["pmis", "structured"])
+def test_captured_pcg_bitwise_per_iteration_loop(path, variant):
+    """The captured blocks give the per-iteration loop's count, history and
+    x bit for bit, on the first (capturing) solve and on a replay at
+    another tolerance; the counters count the launches executed: the eager
+    warm-up's start and block before the first capture, then per replay the
+    captured launches; the kernels took the warm-up's paths."""
+    _need_cuda()
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    a = amg.poisson3d_7pt(32)
+    grid = (32,) * 3 if path == "structured" else None
+    hier = amg.amg_setup(a, PARAMS if grid is None else amg.AMGParams(),
+                         device="cuda", grid=grid)
+    b = amg.default_rhs(a, seed=0).cuda()
+    a0 = hier.levels[0].a
+    owner = a0 if variant == "cg" else hier
+
+    def solve(tol, **kw):
+        if variant == "cg":
+            return amg.cg(a0, b, tol=tol, **kw)
+        return amg.amg_pcg(a0, b, hier, tol=tol, variant=variant, **kw)
+
+    for warm, tol in ((1, 1e-6), (0, 1e-4)):
+        want = solve(tol, graph=False)
+        before = G.counts()
+        got = solve(tol)
+        torch.cuda.synchronize()
+        _same_result(want, got)
+        (stats,) = G.graph_stats(owner).values()
+        assert not stats["path_changed"]
+        runner = next(iter(owner._graphs.values()))
+        added = {k: v - before[k] for k, v in G.counts().items()}
+        blocks = -(-max(got.iters, 1) // G.BLOCK) + warm
+        assert added == {k: (1 + warm) * runner.start_inc[k]
+                         + blocks * runner.block_inc[k] for k in added}
+    assert stats["solves"] == 2 and stats["pool_bytes"] >= 0
+
+
+@pytest.mark.parametrize("variant", ["standard", "pipelined"])
+@pytest.mark.parametrize("path", ["pmis", "structured"])
+def test_captured_sharded_pcg_bitwise_per_iteration_loop(path, variant):
+    _need_cuda()
+    from omp_amg_tpu_torch.parallel.dist import make_dist_solver
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    a = amg.poisson3d_7pt(32)
+    mesh = amg.ShardMesh(4, "cuda")
+    solver = amg.AMGSolver(
+        a, PARAMS if path == "pmis" else amg.AMGParams(), mesh=mesh,
+        grid=None if path == "pmis" else (32,) * 3, transport="remote",
+        agg_rows_per_dev=64)
+    dh = solver.hierarchy
+    bs = mesh.shard(amg.default_rhs(a, seed=0))
+    want = make_dist_solver(mesh, dh, tol=1e-6, variant=variant,
+                            graph=False)(dh, bs)
+    got = make_dist_solver(mesh, dh, tol=1e-6, variant=variant)(dh, bs)
+    _same_result(want, got)
+    (stats,) = G.graph_stats(dh).values()
+    assert not stats["path_changed"]
+    x0 = solver.solve(amg.default_rhs(a, seed=1), graph=False)
+    info0 = dict(solver.last_info)
+    x1 = solver.solve(amg.default_rhs(a, seed=1))
+    assert solver.last_info["inner_iters"] == info0["inner_iters"]
+    assert np.array_equal(x0, x1)
+
+
+def test_captured_solve_after_refresh_drops_graphs():
+    """A refresh drops the graphs of the hierarchy it replaces; the captured
+    solve on the refreshed hierarchy takes a fresh solver's counts."""
+    _need_cuda()
+    import gc
+    import weakref
+
+    a = amg.poisson3d_7pt(32)
+    b = amg.default_rhs(a, seed=0)
+    solver = amg.AMGSolver(a, PARAMS, refreshable=True)
+    solver.solve(b)
+    old = solver.hierarchy
+    assert len(old._graphs) == 1
+    alive = weakref.ref(next(iter(old._graphs.values())))
+    a2 = amg.Dia(data=a.data * 2.0, offsets=a.offsets, dims=a.dims)
+    solver.refresh(a2)
+    gc.collect()
+    assert alive() is None and "_graphs" not in old.__dict__
+    solver.solve(b)
+    fresh = amg.AMGSolver(a2, PARAMS)
+    fresh.solve(b)
+    assert solver.last_info["inner_iters"] == fresh.last_info["inner_iters"]
+    assert solver.last_info["outer_iters"] == fresh.last_info["outer_iters"]
+
+
+def test_capture_failure_raises():
+    """A step that reads the device under capture fails the capture, and
+    the error reaches the caller: no eager fallback."""
+    _need_cuda()
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    def start(b, tol, x0):
+        hist, k = G.new_history(4, torch.linalg.vector_norm(b))
+        return dict(x=b.clone(), k=k, active=k < 4, hist=hist)
+
+    def step(st, masked):
+        float(st["k"])          # a host read: not capturable
+        k, active = G.advance(st, 4, st["active"])
+        return dict(st, k=k, active=active)
+
+    class Owner:
+        pass
+
+    program = G.Program(start, step, lambda st: st)
+    with pytest.raises(RuntimeError):
+        G.run(program, torch.ones(8, device="cuda"), 1e-6, owner=Owner(),
+              key="host-read")

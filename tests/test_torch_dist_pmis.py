@@ -15,9 +15,11 @@ CPU (the reference on conftest's 8 virtual CPU devices, the port on
 - the certified counts (inner per outer pass, outer) equal the reference's
   for standard and pipelined PCG and Chebyshev on 1, 2 and 4 shards, for a
   fully replicated hierarchy, and for the central route (ext+i not asked:
-  ``amg_setup`` plus ``partition_hierarchy``); the two halo transports
-  give the same bits; a structured hierarchy that does not split into
-  z-slabs takes the row partition;
+  ``amg_setup`` plus ``partition_hierarchy``); on bench.py's 2d5pt,
+  aniso9pt (θ = 0.5) and 27-point Chebyshev configs at CPU sizes the mesh
+  counts on 1, 2 and 4 shards equal the reference's serial ones; the two
+  halo transports give the same bits; a structured hierarchy that does not
+  split into z-slabs takes the row partition;
 - the distributed refresh: equal to a fresh setup and bitwise the
   reference's refresh (×2.0 and the non-dyadic ×1.7 with its tie repair),
   the pattern guard, the guard on a P nonzero dropped after the repair and
@@ -282,6 +284,58 @@ def test_certified_counts_equal_reference(option, ndev):
     assert res.rel_residual <= 1e-8
     true_rel = (np.linalg.norm(b - dia_to_scipy(a) @ res.x[:a.n_rows])
                 / np.linalg.norm(b))
+    assert true_rel <= 2e-8
+
+
+# bench.py's PMIS configs beyond 7-point 16³ at CPU sizes (the generator,
+# its size and the PMIS parameters bench.py gives it); the mesh's certified
+# counts are held to the reference's serial solve, since the reference's own
+# mesh counts change with the partition on aniso9pt (ROADMAP Queue 3)
+MESH_CONFIGS = {
+    "2d5pt_32": ("poisson2d_5pt", 32, {}),
+    "aniso9pt_32_theta0.5": ("aniso2d_9pt", 32, {"theta": 0.5}),
+    "27pt_12_cheby": ("poisson3d_27pt", 12, {"smoother": "chebyshev"}),
+}
+_SERIAL_COUNTS = {}
+
+
+def _reference_serial_counts(config):
+    if config not in _SERIAL_COUNTS:
+        from omp_amg_tpu.solvers.ir import solve_ir as ref_solve_ir
+
+        gen, n, kw = MESH_CONFIGS[config]
+        a_j = getattr(ref, gen)(n, backend="numpy")
+        b = _rhs(getattr(port, gen)(n))
+        solver_j = ref.AMGSolver(a_j, RefParams(coarsening="pmis", **kw))
+        res = ref_solve_ir(solver_j.a_host, b, solver_j.a,
+                           solver_j.hierarchy, tol=1e-8, maxiter=500)
+        _SERIAL_COUNTS[config] = (list(res.inner_iters), res.outer_iters)
+    return _SERIAL_COUNTS[config]
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+@pytest.mark.parametrize("config", list(MESH_CONFIGS))
+def test_mesh_counts_equal_reference_serial(config, ndev):
+    """The facade's certified PMIS solve on a mesh (the captured-block
+    steps, run as the eager block loop here) takes the reference's serial
+    inner counts per outer pass and outer count."""
+    gen, n, kw = MESH_CONFIGS[config]
+    a = getattr(port, gen)(n)
+    b = _rhs(a)
+    solver = port.AMGSolver(a, port.AMGParams(coarsening="pmis", **kw),
+                            mesh=port.ShardMesh(ndev, "cpu"), device="cpu",
+                            transport="remote", agg_rows_per_dev=AGG)
+    x = solver.solve(b, tol=1e-8)
+    info = solver.last_info
+    inner, outer = _reference_serial_counts(config)
+    if (info["inner_iters"], info["outer_iters"]) != (inner, outer):
+        for k, h in enumerate(info["residual_histories"]):
+            print(f"{config} d={ndev} history outer={k}: "
+                  + " ".join(f"{v:.6e}" for v in h))
+    assert info["inner_iters"] == inner
+    assert info["outer_iters"] == outer
+    assert info["rel_residual"] <= 1e-8
+    true_rel = (np.linalg.norm(b - dia_to_scipy(a) @ x) / np.linalg.norm(b))
     assert true_rel <= 2e-8
 
 
