@@ -132,7 +132,27 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``--problem 3d7pt --n 256 --setup-flavor device``: no host planes built
    beyond the tiny f32 check, build, setup and solve seconds, certified ≤
    1e-8, the count beside the TPU record; (15e) GPU/CPU iteration parity
-   of both device flavors at 32³.
+   of both device flavors at 32³;
+16. the mesh that spans processes: the script starts itself twice more as
+   two ranks on the one card (``--phase16-rank``, gloo, the
+   ``OMP_AMG_COORDINATOR`` gate at a free port; each rank's counters set
+   to 0 just before its main path and read just after, summed over the
+   ranks); (16a) PMIS n³ on ``global_mesh(2)`` (2 × 2 shards) through
+   ``AMGSolver(..., transport="remote")``, certified ``tol=1e-8``: counts
+   and x those of phase 13's one-process ``ShardMesh(4)`` (max|Δx| 0),
+   setup seconds, the warm solve (median of 5), ``mesh.stats`` (calls,
+   bytes and transfer seconds per solve and per iteration), ``graph_stats``
+   reporting the eager block loop; (16b) z-slab n³ on the same mesh with
+   ``transport="remote"`` (the cross-process ``remote_halo``, CUDA IPC
+   mailboxes) and ``"ppermute"``: bitwise equal, counts those of phase
+   10, and x bitwise phase 10's; on each rank the cross-process window at
+   L0 exact against the twin on the gathered shards, the kernel timed
+   against its twin (cold L2), and the whole exchange (strip copies,
+   stream sync, barrier, launch) and the ``ppermute`` strips on the host
+   clock; (16c) the scaling model's machine constants on this card (a
+   1 GiB copy, the per-call floor of ``csr_spmv``) and its reports for
+   PMIS and structured n³ calibrated to each one's measured V-cycle.
+   A rank that fails makes the script fail.
 
 Since slice 11 every solve on the card runs the captured blocks, so the
 main paths' launch counts include the frozen iterations of the last block
@@ -162,6 +182,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -379,8 +400,8 @@ def halo_scalar_check(name, srcs, nl, nr, flush):
 
     def call(vec):
         rc = lib.remote_halo_window_launch(
-            d, n, nl, nr, out.shape[1], vec, table, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            d, n, nl, nr, out.shape[1], vec, table, None, None,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{name}: remote_halo launch failed: {rc}")
     call(0)
@@ -2693,10 +2714,362 @@ def device_setups(n, counters, s3_setup_s):
     return paths
 
 
+# --- phase 16: the mesh that spans processes, and the scaling model ---------
+
+PROC_RANKS = 2          # phase 16: ranks on the one card
+PROC_LOCAL = 2          # shards per rank (2 × 2 = phases 10 and 13's 4)
+PROC_RUNS = 5           # warm solves per rank (median reported)
+PROC_TIMEOUT = 420      # seconds, per rank
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_main(args) -> int:
+    """One rank of phase 16 (``--phase16-rank pmis|slab``), on the card:
+    ``maybe_initialize`` from the env gate, ``global_mesh(PROC_LOCAL)``,
+    the main path through ``AMGSolver`` with every counter set to 0 just
+    before it and read just after; x (rank 0) into ``--out``; one
+    ``RESULT`` JSON line."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import (
+        const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
+        remote_halo,
+    )
+    from omp_amg_tpu_torch.parallel.multihost import (
+        global_mesh, maybe_initialize,
+    )
+
+    global PEAK
+    PEAK = card_peak(torch.cuda.get_device_name(0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not maybe_initialize():
+        raise RuntimeError("phase 16 rank without the OMP_AMG_* env gate")
+    mesh = global_mesh(PROC_LOCAL)
+    counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
+                "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
+                "extract_lanes": extract_lanes, "remote_halo": remote_halo}
+    n = args.n
+    a = amg.poisson3d_7pt(n)
+    b = amg.default_rhs(a, seed=SEED)
+    runs = {}
+    if args.phase16_rank == "pmis":
+        cases = (("remote", amg.AMGParams(coarsening="pmis"), None),)
+    else:
+        cases = tuple((t, amg.AMGParams(), (n,) * 3)
+                      for t in ("remote", "ppermute"))
+    for transport, params, grid in cases:
+        reset_counters(counters)
+        remote_halo.ipc_launches = 0
+        mesh.reset_stats()
+        t0 = time.perf_counter()
+        solver = amg.AMGSolver(a, params, grid=grid, mesh=mesh,
+                               device="cuda", transport=transport)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        x = solver.solve(b, tol=1e-8)
+        torch.cuda.synchronize()
+        launches = {k: m.launches for k, m in counters.items()}
+        ipc = remote_halo.ipc_launches
+        info = solver.last_info
+        iters = sum(info["inner_iters"])
+        walls, stats = [], []
+        for _ in range(PROC_RUNS):
+            mesh.reset_stats()
+            t0 = time.perf_counter()
+            solver.solve(b, tol=1e-8)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stats.append(dict(mesh.stats))
+            if (solver.last_info["inner_iters"], solver.last_info[
+                    "outer_iters"]) != (info["inner_iters"],
+                                        info["outer_iters"]):
+                raise AssertionError("a warm solve's counts changed")
+        from omp_amg_tpu_torch.solvers.graph import graph_stats
+
+        g = list(graph_stats(solver.hierarchy).values())
+        if mesh.rank == 0:
+            np.save(f"{args.out}/x_{args.phase16_rank}_{transport}.npy", x)
+        k = int(np.argsort(walls)[len(walls) // 2])
+        runs[transport] = dict(
+            setup_s=setup_s, inner=info["inner_iters"],
+            outer=info["outer_iters"], rel=info["rel_residual"],
+            launches=launches, ipc_launches=ipc,
+            scalar=remote_halo.scalar_launches,
+            warm_s=sorted(walls), iters=iters,
+            sizes=solver.stats()["sizes"],
+            sharded=solver.stats()["sharded"],
+            stats=stats[k], graph=g,
+            forms=[type(lv.a).__name__ for lv in solver.hierarchy.levels])
+        if transport == "remote" and args.phase16_rank == "slab":
+            runs["window"] = ipc_window_row(solver.hierarchy, mesh)
+        del solver
+    mesh.close()
+    print("RESULT " + json.dumps(dict(rank=mesh.rank, world=mesh.world,
+                                      device=str(mesh.device), runs=runs)),
+          flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def ipc_window_row(dh, mesh):
+    """The cross-process ``remote_halo`` window on the level-0 shards of
+    the z-slab hierarchy ``dh`` (random x from the seed): exact against the
+    twin on the gathered shards; the kernel alone (CUDA events, cold L2)
+    against its twin with the same strips, and the whole exchange (strip
+    copies, stream sync, barrier, launch) on the host clock."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import remote_halo as rh
+
+    a0 = dh.levels[0].a
+    n_loc = a0.n_rows // a0.nshards
+    nl, nr = a0.hl * a0.plane, a0.hr * a0.plane
+    rng = np.random.default_rng(SEED)
+    full = torch.from_numpy(rng.standard_normal(a0.n_rows)
+                            .astype(np.float32)).cuda()
+    xs = mesh.shard(full)
+    got = mesh.remote_windows(xs, nl, nr)
+    shards = list(full.view(mesh.size, n_loc))
+    want = rh.remote_halo_window_plain(shards, nl, nr)[
+        mesh.first:mesh.first + mesh.local]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err != HALO_BOUND:
+        raise AssertionError(f"cross-process remote_halo: max|Δ| {err} "
+                             "against the twin on the gathered shards")
+    box = mesh._mail
+    lo, hi = box.outer(box.exchanges - 1, nl, nr)   # the last exchange's
+    lo_t = shards[mesh.first - 1][n_loc - nl:] if mesh.first else None
+    hi_t = (shards[mesh.first + mesh.local][:nr]
+            if mesh.first + mesh.local < mesh.size else None)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    vec = rh.vector_path(xs, n_loc, nl, nr, (lo, hi))
+    nbytes = 4 * mesh.local * (nl + n_loc + nr) + 4 * (
+        mesh.local * n_loc + (mesh.local - 1) * (nl + nr)
+        + (nl if lo else 0) + (nr if hi else 0))
+    row = compare(f"remote_halo:ipc:L0:rank={mesh.rank}:local={mesh.local}"
+                  f":n_loc={n_loc}:nl={nl}:nr={nr}:path="
+                  f"{'vector' if vec else 'scalar'}",
+                  lambda: rh.remote_halo_window(xs, nl, nr, outer=(lo, hi)),
+                  lambda: rh.remote_halo_window_plain(xs, nl, nr, lo_t,
+                                                      hi_t),
+                  HALO_BOUND, nbytes, flush, flat=lambda w: w.reshape(-1))
+    del flush
+    calls = 50
+    for transport, fn in (
+            ("remote", lambda: mesh.remote_windows(xs, nl, nr)),
+            ("ppermute", lambda: mesh.strips(xs, nl, nr))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        row[f"exchange_{transport}_us"] = (time.perf_counter() - t0) \
+            / calls * 1e6
+    row["gathered_err"] = err
+    return row
+
+
+def _launch_ranks(kind, n, out_dir):
+    """Start ``PROC_RANKS`` ranks of this script (``--phase16-rank kind``)
+    on the card and wait for them; a rank that fails, or outlasts
+    ``PROC_TIMEOUT``, raises. Returns each rank's RESULT."""
+    port = _free_port()
+    procs = []
+    try:
+        for r in range(PROC_RANKS):
+            env = dict(os.environ, OMP_AMG_COORDINATOR=f"127.0.0.1:{port}",
+                       OMP_AMG_NUM_PROCS=str(PROC_RANKS),
+                       OMP_AMG_PROC_ID=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--n", str(n),
+                 "--phase16-rank", kind, "--out", out_dir], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=PROC_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 16 {kind} rank {r} exited "
+                               f"{p.returncode}:\n{out[-3000:]}\n"
+                               f"{err[-6000:]}")
+        for line in out.splitlines():
+            if line.startswith("check "):
+                print(line, flush=True)
+        results.append(json.loads(next(
+            ln for ln in out.splitlines() if ln.startswith("RESULT "))[7:]))
+    return results
+
+
+def process_mesh_paths(n, pm_run, sh_run):
+    """Phase 16a-b (module docstring). Returns ({path: launches summed over
+    the ranks}, the cross-process window rows)."""
+    import tempfile
+
+    import omp_amg_tpu_torch as amg
+
+    a = amg.poisson3d_7pt(n)
+    b64 = amg.default_rhs(a, seed=SEED).numpy().astype(np.float64)
+    a_sp = amg.dia_to_scipy(a)
+    paths, windows = {}, []
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="phase16-", dir=here) as out:
+        for kind, ref_run, transports in (
+                ("pmis", pm_run, ("remote",)),
+                ("slab", sh_run, ("remote", "ppermute"))):
+            t0 = time.perf_counter()
+            res = _launch_ranks(kind, n, out)
+            wall = time.perf_counter() - t0
+            want = (ref_run["info"]["inner_iters"],
+                    ref_run["info"]["outer_iters"])
+            xs = {}
+            for t in transports:
+                runs = [r["runs"][t] for r in res]
+                x = np.load(f"{out}/x_{kind}_{t}.npy")
+                xs[t] = x
+                rel = float(np.linalg.norm(b64 - a_sp @ x)
+                            / np.linalg.norm(b64))
+                dx = float(np.abs(x - ref_run["x"]).max())
+                launches = {k: sum(r["launches"][k] for r in runs)
+                            for k in runs[0]["launches"]}
+                ipc = sum(r["ipc_launches"] for r in runs)
+                label = (f"process{'16a' if kind == 'pmis' else '16b'} "
+                         f"{kind} ranks={PROC_RANKS}x{PROC_LOCAL} {t} "
+                         f"n={n}^3")
+                st, r0 = runs[0]["stats"], runs[0]
+                med = [r["warm_s"][len(r["warm_s"]) // 2] for r in runs]
+                print(f"{label} devices={[r['device'] for r in res]} "
+                      f"sizes={r0['sizes']} sharded={r0['sharded']} "
+                      f"forms={r0['forms']} setup_s="
+                      f"{[round(r['setup_s'], 3) for r in runs]} inner="
+                      f"{r0['inner']} outer={r0['outer']} certified="
+                      f"{r0['rel']:.3e} scipy={rel:.3e} max|dx| vs one "
+                      f"process={dx:.3g} warm_solve_s(median of "
+                      f"{PROC_RUNS})={[round(m, 4) for m in med]} "
+                      f"warm_all={[r['warm_s'] for r in runs]} launches="
+                      f"{launches} ipc_launches={ipc} mesh_stats(rank 0, "
+                      f"median solve): calls={st['calls']} bytes="
+                      f"{st['bytes']} transfer_s={st['seconds']:.4f} "
+                      f"calls_per_iter={st['calls'] / r0['iters']:.1f} "
+                      f"bytes_per_iter={st['bytes'] / r0['iters']:.0f} "
+                      f"transfer_share={st['seconds'] / med[0]:.3f} "
+                      f"graph={r0['graph']} wall_s={wall:.1f}", flush=True)
+                for r in runs:
+                    if (r["inner"], r["outer"]) != want:
+                        raise AssertionError(
+                            f"{label}: counts {r['inner']}/{r['outer']} "
+                            f"differ from the one-process mesh's {want}")
+                    if r["graph"][0]["captured"] is not False:
+                        raise AssertionError(f"{label}: graph_stats does "
+                                             "not report the eager loop")
+                check_certified(label, dict(rel_residual=r0["rel"]), rel)
+                used = ({"csr_spmv", "remote_halo"} if kind == "pmis"
+                        else {"dia_spmv", "remote_halo"})
+                if t == "ppermute":
+                    used -= {"remote_halo"}
+                expect_launches(label, launches, used)
+                if t == "remote" and ipc != launches["remote_halo"]:
+                    raise AssertionError(f"{label}: {launches['remote_halo']}"
+                                         f" remote_halo launches, {ipc} of "
+                                         "them cross-process")
+                if kind == "pmis" and dx != 0.0:
+                    raise AssertionError(f"{label}: x differs from the "
+                                         "one-process ShardMesh's")
+                paths[f"process_{kind}_{t}"] = launches
+            if kind == "slab":
+                if not np.array_equal(xs["remote"], xs["ppermute"]):
+                    raise AssertionError("process16b: remote differs from "
+                                         "ppermute")
+                dx10 = float(np.abs(xs["remote"] - ref_run["x"]).max())
+                print(f"process16b remote == ppermute: x bitwise equal; "
+                      f"max|dx| vs phase 10 {dx10:.3g}", flush=True)
+                if dx10 != 0.0:
+                    raise AssertionError("process16b: x differs from phase "
+                                         "10's one-process mesh")
+                for r in res:
+                    row = r["runs"]["window"]
+                    windows.append(row)
+                    print(f"process16b window rank={r['rank']} kernel_us="
+                          f"{row['ms'] * 1e3:.2f} plain_us="
+                          f"{row['plain_ms'] * 1e3:.2f} bound_us="
+                          f"{row['bound_us']:.2f} exchange_us (strip copies,"
+                          f" sync, barrier, launch)="
+                          f"{row['exchange_remote_us']:.1f} ppermute strips"
+                          f" exchange_us={row['exchange_ppermute_us']:.1f} "
+                          f"max_abs_err={row['max_abs_err']} gathered_err="
+                          f"{row['gathered_err']}", flush=True)
+    return paths, windows
+
+
+def scaling_constants(n, flush):
+    """Phase 16c: the scaling model's machine constants on this card, and
+    its reports for PMIS and structured n³ calibrated to each one's
+    measured V-cycle. Returns the constants."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import csr_spmv
+    from omp_amg_tpu_torch.parallel.scaling_model import (
+        MachineModel, scaling_report,
+    )
+
+    src = torch.empty(1 << 28, dtype=torch.float32, device="cuda")  # 1 GiB
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), reps=10)
+    hbm_gbps = 2 * src.numel() * 4 / copy_ms / 1e6
+    del src, dst
+    small = amg.dia_to_csr(amg.dia_from_scipy(amg.dia_to_scipy(
+        amg.poisson2d_5pt(32)), device="cuda"))
+    xs = torch.ones(small.n_rows, device="cuda")
+    stage_us = cuda_ms(lambda: csr_spmv.spmv(small, xs), flush=flush) * 1e3
+    machine = MachineModel(hbm_gbps=hbm_gbps, stage_latency_us=stage_us)
+    print(f"scaling16c constants hbm_gbps={hbm_gbps:.1f} (1 GiB copy "
+          f"{copy_ms:.4f} ms) stage_latency_us={stage_us:.3f} (csr_spmv "
+          f"{small.n_rows} rows) defaults={MachineModel()}", flush=True)
+    a = amg.poisson3d_7pt(n)
+    r = amg.default_rhs(a, seed=SEED).to("cuda")
+    for label, params, grid in (
+            ("pmis", amg.AMGParams(coarsening="pmis"), None),
+            ("structured", amg.AMGParams(), (n,) * 3)):
+        hier = amg.amg_setup(a, params, device="cuda", grid=grid)
+        vms = cuda_ms(lambda: amg.vcycle(hier, r))
+        rep = scaling_report(hier, grid=grid, machine=machine,
+                             measured_t_cycle_ms=vms)
+        pred = {k: {f: v[f] for f in ("t_cycle_ms", "weak_efficiency",
+                                      "weak_efficiency_lo",
+                                      "weak_efficiency_hi")}
+                for k, v in rep["predicted"].items()}
+        print(f"scaling16c {label} n={n}^3 family={rep['family']} "
+              f"vcycle_ms={vms:.4f} levels={len(rep['levels'])} predicted="
+              f"{json.dumps(pred)}", flush=True)
+        del hier
+    return machine
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=128,
                     help="grid edge of the 3D 7-point Poisson main paths")
+    ap.add_argument("--phase16-rank", choices=("pmis", "slab"),
+                    help="run as one rank of phase 16 (started by phase 16 "
+                         "itself, with the OMP_AMG_* env gate)")
+    ap.add_argument("--out", help="phase 16 rank: where rank 0 writes x")
     args = ap.parse_args()
 
     import torch
@@ -2705,6 +3078,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 1
+    if args.phase16_rank:
+        return rank_main(args)
     card = card_info()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -2891,6 +3266,15 @@ def main() -> int:
     # CLI's device-only build
     device_launches = device_setups(args.n, counters, s3_run["setup_s"])
 
+    # phase 16: the mesh that spans processes (two ranks on the card: the
+    # PMIS path, the z-slab path on both transports, the cross-process
+    # remote_halo), then the scaling model's constants and reports
+    t0 = time.perf_counter()
+    proc_launches, ipc_rows = process_mesh_paths(args.n, pm_run, sh_run)
+    rows["remote_halo"] += ipc_rows
+    scaling_constants(args.n, flush)
+    print(f"phase 16 seconds={time.perf_counter() - t0:.1f}", flush=True)
+
     if any(m.startswith(("jax", "omp_amg_tpu.")) or m == "omp_amg_tpu"
            for m in sys.modules):
         raise AssertionError("the JAX package was imported")
@@ -2899,7 +3283,7 @@ def main() -> int:
              "structured_3d": s3_launches, "structured_2d": s2_launches,
              "sharded_3d": sh_launches, **cheby_paths, **option_launches,
              **sharded_launches, **refresh_launches, **cli_launches,
-             **pm_launches, **device_launches}
+             **pm_launches, **device_launches, **proc_launches}
     launches = {name: sum(p[name] for p in paths.values())
                 for name in counters}
     print("main-path launches: " + " ".join(f"{k}={v}"
@@ -2928,7 +3312,9 @@ def main() -> int:
           f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
           f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
           f"panel_spmm:L0-A·PV, extract_lanes:L0 and "
-          f"remote_halo:L0:d={SHARDS} (the windows) with a cold L2; "
+          f"remote_halo:L0:d={SHARDS} (the windows; cross_process: the "
+          f"window of phase 16b's L0 on each rank, through CUDA IPC) with a "
+          f"cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -2950,10 +3336,14 @@ def main() -> int:
         summary("extract_lanes", "omp_amg_tpu_torch/csrc/extract_lanes.cu",
                 "omp_amg_tpu/ops/pallas_spmm.py:624",
                 "extract_lanes:L0"),
-        summary("remote_halo", "omp_amg_tpu_torch/csrc/remote_halo.cu",
-                "omp_amg_tpu/parallel/slab.py:138, "
-                "omp_amg_tpu/parallel/slab.py:172",
-                f"remote_halo:L0:d={SHARDS}:"),
+        dict(summary("remote_halo", "omp_amg_tpu_torch/csrc/remote_halo.cu",
+                     "omp_amg_tpu/parallel/slab.py:138, "
+                     "omp_amg_tpu/parallel/slab.py:172",
+                     f"remote_halo:L0:d={SHARDS}:"),
+             cross_process=[{k: r[k] for k in (
+                 "name", "max_abs_err", "gathered_err", "ms", "plain_ms",
+                 "bound_ms", "exchange_remote_us", "exchange_ppermute_us")}
+                 for r in ipc_rows]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,14 @@ through hand-written CUDA kernels for Hopper (``csrc/*.cu``):
   (``dist_pmis_setup``, with the value-only ``dist_pmis_refresh``), every
   shard's rows one ``csr_spmv.cu`` launch over its exchanged window, the
   windows again one ``remote_halo.cu`` launch under ``transport=
-  "remote"``.
+  "remote"``;
+- both distributed paths on a mesh that spans processes
+  (``parallel/multihost.py``: ``maybe_initialize`` and ``global_mesh``, a
+  ``ShardMesh`` over a gloo group; several processes may share one
+  card): bitwise the one-process mesh's results; ``transport="remote"``
+  reads the neighbours' strips from their CUDA IPC mailboxes in the same
+  ``remote_halo.cu`` launch. ``parallel/scaling_model.py`` predicts the
+  weak scaling over cards from a hierarchy's per-level traffic.
 
 On one device, ``flavor="device"`` (``AMGSolver``, ``amg_setup``, the
 CLI's ``--setup-flavor device``) runs the setup's own kernels there too:

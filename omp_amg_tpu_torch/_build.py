@@ -138,9 +138,24 @@ def cuda_kernels() -> ctypes.CDLL:
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32
         # d, n, nl, nr, stride, vec, src table (a host array of d device
-        # pointers), dst, stream
+        # pointers), lo, hi, dst, stream
         lib.remote_halo_window_launch.argtypes = ([i32, i64, i64, i64, i64,
-                                                   i32] + [p] * 3)
+                                                   i32] + [p] * 5)
         lib.remote_halo_window_launch.restype = i32
+        # the cross-process form's mailboxes (CUDA IPC)
+        lib.remote_halo_handle_bytes.argtypes = []
+        out = ctypes.POINTER(p)
+        lib.remote_halo_mailbox_alloc.argtypes = [i32, i64, out]
+        lib.remote_halo_mailbox_free.argtypes = [i32, p]
+        lib.remote_halo_ipc_handle.argtypes = [p, p]
+        lib.remote_halo_ipc_open.argtypes = [i32, p, out]
+        lib.remote_halo_ipc_close.argtypes = [p]
+        # box, first, nr, last, n, nl, stream
+        lib.remote_halo_post.argtypes = [p, p, i64, p, i64, i64, p]
+        for fn in (lib.remote_halo_handle_bytes, lib.remote_halo_mailbox_alloc,
+                   lib.remote_halo_mailbox_free, lib.remote_halo_ipc_handle,
+                   lib.remote_halo_ipc_open, lib.remote_halo_ipc_close,
+                   lib.remote_halo_post):
+            fn.restype = i32
         _cuda_lib = lib
     return _cuda_lib

@@ -19,7 +19,9 @@ tiny host instance shows the stencil values f32-exact and the certified
 residual runs on the device (``--ir-residual auto`` or ``device``, IR on),
 the operator is generated on the device and no host planes are built: the
 certified residual then uses those exact f32 values, in float64 on the
-device. Not ported: the reference's multi-process initialisation.
+device. As the reference's, ``main`` first calls
+:func:`~.parallel.multihost.maybe_initialize`, which wires the processes of
+a multi-process launch together (env-gated; a no-op otherwise).
 """
 
 from __future__ import annotations
@@ -120,6 +122,11 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import torch
+
+    # multi-process entry: env-gated, a no-op for a single process
+    from .parallel.multihost import maybe_initialize
+
+    maybe_initialize()
 
     from . import native
     from .amg.hierarchy import amg_setup, fine_operator, hierarchy_stats

@@ -119,7 +119,8 @@ def _dist_ell_level(lv, params, ndev: int, transport: str):
 def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
                               transport: str = "ppermute"):
     """Port ``DistHierarchy`` from numpy arrays, placed on ``mesh`` (a
-    ``ShardMesh``), for either distributed family.
+    ``ShardMesh``, over processes too: this rank's shards), for either
+    distributed family.
 
     The z-slab family: ``levels`` is a sequence of dicts, one per level,
     with ``sharded``, ``dinv`` (global rows), ``lmax`` and ``grid`` =
@@ -173,15 +174,17 @@ def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
             s = torch.from_numpy(jacobi_scale(dinv, lmax, params))
             dinv = torch.from_numpy(dinv.copy())
             data = torch.from_numpy(np.array(lv["a_data"], np.float32))
-            a = SlabDia(data=_compact(_split(data, mesh)),
+            a = SlabDia(data=_compact(_split(data, mesh), mesh),
                         offsets=tuple(int(o) for o in lv["a_offsets"]),
                         dims=tuple(int(d) for d in lv["a_dims"]),
                         hl=int(lv["hl"]), hr=int(lv["hr"]),
-                        transport=transport)
+                        transport=transport, mesh=mesh)
             out.append(DistLevel(
                 a=a, dinv=list(_split(dinv, mesh)),
-                p=SlabProlong(**shape, slice_in=bool(lv["slice_in"])),
-                r=SlabRestrict(**shape, gather_out=bool(lv["gather_out"])),
+                p=SlabProlong(**shape, slice_in=bool(lv["slice_in"]),
+                              mesh=mesh),
+                r=SlabRestrict(**shape, gather_out=bool(lv["gather_out"]),
+                               mesh=mesh),
                 lmax=lmax, s=list(_split(s, mesh)), sharded=True))
         else:
             rep = make_level(_operator(lv, dev), lv["dinv"], lmax,
@@ -191,4 +194,5 @@ def dist_hierarchy_from_numpy(levels, coarse_chol, params, mesh,
                                  r=rep.r, lmax=rep.lmax, s=rep.s,
                                  sharded=False))
     chol = torch.tensor(np.asarray(coarse_chol, np.float32), device=dev)
-    return DistHierarchy(levels=tuple(out), coarse_chol=chol, params=params)
+    return DistHierarchy(levels=tuple(out), coarse_chol=chol, params=params,
+                         mesh=mesh)

@@ -26,6 +26,13 @@ Two operator families shard a level's rows over the mesh:
     shard's fine rows, so that the restriction is one ``csr_spmv`` launch
     per shard and a shard-order sum (no scatter, no atomics).
 
+On a mesh over processes (:mod:`.multihost`) a sharded operator holds
+this rank's blocks only and carries the mesh (``mesh``, set at
+placement): halo strips, gathered windows and the shard-order sums cross
+processes through it, and every result is bitwise the one-process one. Its
+collectives run on the host, so there :func:`make_dist_solver` runs the
+eager block loop in place of CUDA graphs (``graph_stats`` says so).
+
 Levels below the agglomeration threshold are replicated: one full vector,
 the port's own single-device operators (``Csr`` or ``Dia``, ``ConstDia``,
 the grid transfers) and kernels. Global dots and norms are sums over the
@@ -59,7 +66,7 @@ from ..ops import spmv as ops
 from ..solvers import graph as G
 from ..solvers.cg import VARIANTS, CGResult, host_copy, standard_program
 from ..sparse.formats import Csr
-from .mesh import psum
+from .mesh import first_shard, gather, psum
 from .slab import (
     SlabDia, SlabProlong, SlabRestrict, _exchange_planes,
     _exchange_planes_remote, check_transport, slab_apply, slab_prolong,
@@ -85,6 +92,8 @@ class DistOp:
     n_in_real: int             # unpadded input length
     transport: str = "ppermute"
     tblocks: tuple = None      # replicated mode: per shard (its P rows)ᵀ
+    mesh: object = None        # the mesh of the placed blocks (None: every
+                               # shard's block is in ``blocks``)
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -92,9 +101,14 @@ class DistOp:
         check_transport(self.transport)
 
     @property
+    def nshards(self) -> int:
+        """Global shard count."""
+        return self.mesh.size if self.mesh is not None else len(self.blocks)
+
+    @property
     def n_rows(self) -> int:
-        """Global (padded) rows."""
-        return sum(_block_rows(b) for b in self.blocks)
+        """Global (padded) rows (every block holds as many)."""
+        return self.nshards * _block_rows(self.blocks[0])
 
 
 def _block_rows(b) -> int:
@@ -124,12 +138,14 @@ class DistHierarchy:
     levels: Tuple[DistLevel, ...]
     coarse_chol: torch.Tensor  # replicated lower Cholesky factor
     params: AMGParams
+    mesh: object = None        # the mesh it is placed on
 
     @property
     def nshards(self) -> int:
+        """Global shard count."""
         for lv in self.levels:
             if isinstance(lv.a, (SlabDia, DistOp)):
-                return len(lv.a.blocks)
+                return lv.a.nshards
         return 1
 
 
@@ -146,10 +162,11 @@ def _windows(op: DistOp, xs):
             return [(x, 0) for x in xs]
         exchange = (_exchange_planes_remote if op.transport == "remote"
                     else _exchange_planes)
-        return [(w, h) for w in exchange(xs, 1, h, h)]
+        return [(w, h) for w in exchange(xs, 1, h, h, op.mesh)]
     if op.mode == "gather":
-        xg = torch.cat(xs)
-        return [(xg, i * op.m_in) for i in range(len(xs))]
+        xg = gather(xs, op.mesh)
+        first = first_shard(op.mesh)
+        return [(xg, (first + i) * op.m_in) for i in range(len(xs))]
     return [(xs, 0)] * len(op.blocks)    # the full (replicated) vector
 
 
@@ -174,7 +191,8 @@ def dist_op_apply(op: DistOp, xs, mode: str = "spmv", bs=None, ss=None,
 def restrict_to_replicated(p_op: DistOp, rs):
     """r_c = Pᵀ·r at a shard → replicated transition: per shard its Pᵀ
     block times its rows of r, summed over the shards in shard order."""
-    return psum([csr_spmv.spmv(t, r) for t, r in zip(p_op.tblocks, rs)])
+    return psum([csr_spmv.spmv(t, r) for t, r in zip(p_op.tblocks, rs)],
+                p_op.mesh)
 
 
 def dist_spmv(op, x, d: int):
@@ -192,16 +210,16 @@ def dist_spmv(op, x, d: int):
     return ops.spmv(op, x)
 
 
-def pdot(a, b) -> torch.Tensor:
+def pdot(a, b, mesh=None) -> torch.Tensor:
     """Global dot (0-dim tensor on the device): per-shard dots summed in
-    shard order."""
+    shard order (over every rank's shards on a process mesh)."""
     if isinstance(a, list):
-        return psum([torch.dot(x, y) for x, y in zip(a, b)])
+        return psum([torch.dot(x, y) for x, y in zip(a, b)], mesh)
     return torch.dot(a, b)
 
 
-def pnorm(a) -> torch.Tensor:
-    return torch.sqrt(pdot(a, a))
+def pnorm(a, mesh=None) -> torch.Tensor:
+    return torch.sqrt(pdot(a, a, mesh))
 
 
 def _residual(lv: DistLevel, x, b):
@@ -308,6 +326,7 @@ def _programs(dh: DistHierarchy, maxiter: int, variant: str):
     when level 0 is replicated)."""
     a = dh.levels[0].a
     d = dh.nshards
+    mesh = dh.mesh
 
     def precond(r):
         return dist_vcycle(dh, r)
@@ -316,22 +335,24 @@ def _programs(dh: DistHierarchy, maxiter: int, variant: str):
         return dist_spmv(a, v, d)
 
     if variant == "pipelined":
-        return _pipelined_program(apply_a, precond, maxiter)
-    return standard_program(apply_a, precond, maxiter, dot=pdot, norm=pnorm,
-                            vmap=_map)
+        return _pipelined_program(apply_a, precond, maxiter, mesh)
+    return standard_program(apply_a, precond, maxiter,
+                            dot=lambda u, v: pdot(u, v, mesh),
+                            norm=lambda u: pnorm(u, mesh), vmap=_map)
 
 
-def _pdots(pairs) -> torch.Tensor:
+def _pdots(pairs, mesh=None) -> torch.Tensor:
     """The global dots of several vector pairs as one tensor, the per-shard
     partials summed over the shards in one shard-order sum (one reduction
     point)."""
     if isinstance(pairs[0][0], list):
         return psum([torch.stack([torch.dot(u[i], v[i]) for u, v in pairs])
-                     for i in range(len(pairs[0][0]))])
+                     for i in range(len(pairs[0][0]))], mesh)
     return torch.stack([torch.dot(u, v) for u, v in pairs])
 
 
-def _pipelined_program(apply_a, precond, maxiter: int) -> G.Program:
+def _pipelined_program(apply_a, precond, maxiter: int,
+                       mesh=None) -> G.Program:
     """Sharded single-reduction PCG (Chronopoulos–Gear): γ, δ and ‖r‖² of
     the entry state in one shard-order sum per iteration, α and β from them
     as f32 device scalars. As the reference's, the exit test ‖r‖² >
@@ -341,7 +362,7 @@ def _pipelined_program(apply_a, precond, maxiter: int) -> G.Program:
     def start(b, tol, x0):
         if x0 is not None:
             raise ValueError("the sharded PCG starts from x = 0")
-        rn2 = pdot(b, b)                   # ‖r₀‖² = ‖b‖²
+        rn2 = pdot(b, b, mesh)             # ‖r₀‖² = ‖b‖²
         bnorm2 = G.guard(rn2)
         u = precond(b)
         hist, k = G.new_history(maxiter, torch.sqrt(rn2))
@@ -356,7 +377,7 @@ def _pipelined_program(apply_a, precond, maxiter: int) -> G.Program:
         sel = G.selector(st["active"], masked)
         k0 = st["k"]
         gamma, delta, rn2 = _pdots([(st["r"], st["u"]), (st["w"], st["u"]),
-                                    (st["r"], st["r"])]).unbind()
+                                    (st["r"], st["r"])], mesh).unbind()
         G.record(st["hist"], k0, torch.sqrt(rn2), st["active"] & (k0 > 0))
         beta = torch.where(k0 == 0, torch.zeros_like(gamma),
                            gamma / st["g_prev"])
@@ -374,7 +395,7 @@ def _pipelined_program(apply_a, precond, maxiter: int) -> G.Program:
                     a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
 
     def finish(st):
-        st = dict(st, rnorm=pnorm(st["r"]))
+        st = dict(st, rnorm=pnorm(st["r"], mesh))
         k, history, rnorm, bnorm2 = host_copy(st, "rnorm", "bnorm2")
         history = history[:k] + [float(rnorm)] if k else history[:1]
         return CGResult(x=st["x"], iters=k,
@@ -401,8 +422,10 @@ def make_dist_solver(mesh, dh: DistHierarchy, tol: float = 1e-6,
     ``variant="pipelined"`` is the single-reduction PCG: one shard sum per
     iteration. ``graph=True``: captured blocks on CUDA, cached on the
     ``DistHierarchy`` passed to ``solve`` (the per-call ``tol`` an input of
-    the graphs), the eager block loop on CPU; ``graph=False``: the
-    per-iteration loop."""
+    the graphs), the eager block loop on CPU and on a process mesh (its
+    collectives run on the host and cannot be captured; the runner is
+    cached on the hierarchy all the same, and ``graph_stats`` reports it
+    with ``captured: False``); ``graph=False``: the per-iteration loop."""
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r} (supported: "
                          f"{', '.join(VARIANTS)})")
@@ -414,7 +437,7 @@ def make_dist_solver(mesh, dh: DistHierarchy, tol: float = 1e-6,
                leaves[0].dtype, int(maxiter))
         res = G.run(_programs(dh, maxiter, variant), bs,
                     tol if tol_s is None else tol_s, graph=graph, owner=dh,
-                    key=key)
+                    key=key, capture=mesh.world == 1)
         return res._replace(x=mesh.gather(res.x)) if full else res
 
     return solve

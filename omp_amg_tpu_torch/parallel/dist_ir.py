@@ -16,7 +16,9 @@ row (no atomics), after the plain exchange. It runs once per outer pass
 unit residual goes to the f32 sharded AMG-PCG (:mod:`.dist`) at an
 adaptive tolerance, an input of its captured graphs. On the card b and x
 travel through pinned host buffers, kept per solver and reused across
-solves, with asynchronous copies.
+solves, with asynchronous copies. On a mesh over processes every rank holds
+the f64 blocks of its own shards, the norm is the cross-process
+shard-order sum, and x comes back whole on every rank.
 
 The reference forms this residual from its f32 level-0 values on both mesh
 paths (``omp_amg_tpu/parallel/dist_ir.py:41``, ``:94``); it also rescales
@@ -34,6 +36,7 @@ import torch
 
 from ..solvers.ir import IRResult, dia_apply_f64
 from .dist import DistHierarchy, DistOp, _windows, make_dist_solver, pdot
+from .mesh import first_shard
 from .slab import SlabDia, slab_windows
 
 
@@ -99,13 +102,14 @@ def fine_f64(a, dh: DistHierarchy, device):
         else:
             offsets, data = dia_planes_from_scipy(_host_csr(a))
             offsets = tuple(offsets)
-        d = len(a0.blocks)
         if data.shape[1] != a0.n_rows:
             raise ValueError(f"an operator of {data.shape[1]} rows for a "
                              f"level 0 of {a0.n_rows}")
-        t = torch.from_numpy(np.ascontiguousarray(data)).to(device)
+        first = first_shard(a0.mesh)
+        chunks = np.array_split(data, a0.nshards, axis=1)
         return SlabF64(op=a0, offsets=offsets, blocks=tuple(
-            c.contiguous() for c in torch.chunk(t, d, dim=1)))
+            torch.from_numpy(np.ascontiguousarray(c)).to(device)
+            for c in chunks[first:first + len(a0.blocks)]))
     m = _host_csr(a)
     if not isinstance(a0, DistOp):
         if m.shape[0] != a0.n_rows:
@@ -113,13 +117,14 @@ def fine_f64(a, dh: DistHierarchy, device):
                              f"level 0 of {a0.n_rows}")
         c, v = _ell_f64(m, 0, m.shape[0], device)
         return EllF64(op=None, cols=(c,), vals=(v,))
-    d = len(a0.blocks)
+    d = a0.nshards
     m_out = a0.n_rows // d
     if not (m.shape[0] <= a0.n_rows < m.shape[0] + d):
         raise ValueError(f"an operator of {m.shape[0]} rows for a level 0 "
                          f"of {a0.n_rows} padded rows")
     cols, vals = [], []
-    for i in range(d):
+    first = first_shard(a0.mesh)
+    for i in range(first, first + len(a0.blocks)):
         rows = m[min(i * m_out, m.shape[0]):min((i + 1) * m_out,
                                                 m.shape[0])]
         shift = a0.halo - i * a0.m_in if a0.mode == "halo" else 0
@@ -155,6 +160,10 @@ def _f64_spmv(a64, xs):
             zip(a64.cols, a64.vals, _windows(plain, xs))]
 
 
+def _mesh(a64):
+    return getattr(a64.op, "mesh", None)
+
+
 def _residual_local(a64, bs, xs):
     """One IR refresh: r = b − A·x (f64), its norm (a python float) and the
     unit residual r/‖r‖ in f32 (shard lists, or full vectors)."""
@@ -163,7 +172,7 @@ def _residual_local(a64, bs, xs):
         rs = [b - y for b, y in zip(bs, ys)]
     else:
         rs = bs - ys
-    rnorm = float(torch.sqrt(pdot(rs, rs)).item())
+    rnorm = float(torch.sqrt(pdot(rs, rs, _mesh(a64))).item())
     safe = rnorm if rnorm != 0 else 1.0
     if isinstance(rs, list):
         return [(r / safe).float() for r in rs], rnorm

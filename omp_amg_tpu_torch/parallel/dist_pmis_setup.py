@@ -299,9 +299,10 @@ def dist_pmis_setup(a, ndev: int, params: AMGParams = AMGParams(),
     ``a`` (a ``Dia`` or a scipy sparse matrix).
 
     Returns the sharded :class:`~.dist.DistHierarchy`, placed on ``mesh``
-    when given (a ``ShardMesh`` of ``ndev`` shards; without one it keeps
-    host arrays); ``keep_host=True`` returns ``(dh, DistHostSetup)``. The
-    host hierarchy is bit-identical for every ``ndev``. ``cache`` (a
+    when given (a ``ShardMesh`` of ``ndev`` shards; over processes every
+    rank runs this whole host setup, as the reference's processes do, and
+    places its own shards; without a mesh it keeps host arrays);
+    ``keep_host=True`` returns ``(dh, DistHostSetup)``. The host hierarchy is bit-identical for every ``ndev``. ``cache`` (a
     :class:`DistSetupCache`) records the symbolic decisions for
     :func:`dist_pmis_refresh`. Raises ValueError for an interpolation other
     than ext+i (the facade then partitions a central setup).

@@ -16,6 +16,12 @@ from the slab primitives:
 - structure decisions (strong axes, level sizes, termination) stay on the
   host.
 
+On a mesh over processes every rank holds and probes its own shards; the sums,
+maxima and dots that decide the structure, λmax and the value type cross
+processes through the mesh, so every rank takes the same decisions and
+the shards are bitwise those of a one-process mesh of the same shard
+count.
+
 Coarse levels below the slab-alignment and size thresholds are
 agglomerated: their small operator is pulled to the host once and the
 remaining levels come from the port's host structured setup, replicated.
@@ -36,7 +42,7 @@ from ..amg.params import AMGParams
 from ..amg.structured import strong_axes_from_values
 from ..sparse.formats import Dia
 from .dist import DistHierarchy, DistLevel, pdot, pnorm
-from .mesh import pmax, psum
+from .mesh import first_shard, pmax, psum
 from .slab import (
     SlabDia, SlabProlong, SlabRestrict, check_transport, slab_halos,
     slab_prolong, slab_restrict, slab_spmv,
@@ -59,11 +65,18 @@ def _global_coords(coarse_dims, nc_local: int, shard: int, device):
     return coords
 
 
-def _hash_probe(n_loc: int, d: int, device) -> list:
-    """hash01(global row) − 0.5 per shard, f32 (the deterministic probe and
-    power-iteration start of every setup flavour)."""
+def _local_shards(op: SlabDia) -> range:
+    """The global indices of the shards ``op`` holds."""
+    first = first_shard(op.mesh)
+    return range(first, first + len(op.blocks))
+
+
+def _hash_probe(n_loc: int, shards, device) -> list:
+    """hash01(global row) − 0.5 per shard of ``shards`` (global indices),
+    f32 (the deterministic probe and power-iteration start of every setup
+    flavour)."""
     return [torch.from_numpy(hash01_np(np.arange(i * n_loc, (i + 1) * n_loc))
-                             - np.float32(0.5)).to(device) for i in range(d)]
+                             - np.float32(0.5)).to(device) for i in shards]
 
 
 def _comb_rap_local(op: SlabDia, *, coarse_dims, axes):
@@ -77,19 +90,21 @@ def _comb_rap_local(op: SlabDia, *, coarse_dims, axes):
     """
     dims = op.dims
     nd = len(dims)
-    d = len(op.blocks)
+    d = len(op.blocks)                 # this process's shards
     dev = op.data[0].device
     cplane = _prod(coarse_dims[1:])
-    nc_l = coarse_dims[0] // d * cplane
+    nc_l = coarse_dims[0] // op.nshards * cplane
     sp = SlabProlong(fine_shape=dims, coarse_shape=coarse_dims,
-                     coarsened=axes)
+                     coarsened=axes, mesh=op.mesh)
     sr = SlabRestrict(fine_shape=dims, coarse_shape=coarse_dims,
-                      coarsened=axes)
+                      coarsened=axes, mesh=op.mesh)
 
     def chain(vs):
-        return slab_restrict(sr, slab_spmv(op, slab_prolong(sp, vs, d)))
+        return slab_restrict(sr, slab_spmv(op, slab_prolong(sp, vs,
+                                                            op.nshards)))
 
-    coords = [_global_coords(coarse_dims, nc_l, i, dev) for i in range(d)]
+    coords = [_global_coords(coarse_dims, nc_l, i, dev)
+              for i in _local_shards(op)]
     tlist = list(iproduct(range(3), repeat=nd))
     ws = [[] for _ in range(d)]        # per shard: 3^nd responses
     for tvec in tlist:
@@ -129,40 +144,53 @@ def _comb_rap_local(op: SlabDia, *, coarse_dims, axes):
     offs_c = coarse_offsets(coarse_dims)
     chl, chr_ = slab_halos(offs_c, coarse_dims)
     cop = SlabDia(data=tuple(data_c), offsets=tuple(offs_c),
-                  dims=tuple(coarse_dims), hl=chl, hr=chr_)
-    x = _hash_probe(nc_l, d, dev)
+                  dims=tuple(coarse_dims), hl=chl, hr=chr_, mesh=op.mesh)
+    x = _hash_probe(nc_l, _local_shards(op), dev)
     y1 = slab_spmv(cop, x)
     y2 = chain(x)
-    err = float(pmax([(u - v).abs().max() for u, v in zip(y1, y2)]))
-    scale = float(pmax([v.abs().max() for v in y2]))
+    err = float(pmax([(u - v).abs().max() for u, v in zip(y1, y2)],
+                     op.mesh))
+    scale = float(pmax([v.abs().max() for v in y2], op.mesh))
     return data_c, err, scale
 
 
 def _lmax_local(op: SlabDia, dinv, *, iters: int = 20) -> float:
     """Distributed float32 power iteration for λmax(D⁻¹A), from the hash01
     start vector (the seed of ``_estimate_lmax_apply``)."""
-    v = _hash_probe(dinv[0].numel(), len(dinv), dinv[0].device)
+    v = _hash_probe(dinv[0].numel(), _local_shards(op), dinv[0].device)
+    mesh = op.mesh
 
     def scaled(v):
         return [di * y for di, y in zip(dinv, slab_spmv(op, v))]
 
-    nv = pnorm(v)
+    nv = pnorm(v, mesh)
     v = [t / nv for t in v]
     for _ in range(iters):
         w = scaled(v)
-        nw = pnorm(w)
+        nw = pnorm(w, mesh)
         v = [t / nw for t in w]
     w = scaled(v)
-    return float(np.float32((pdot(v, w) / pdot(v, v)).item()))
+    return float(np.float32((pdot(v, w, mesh) / pdot(v, v, mesh)).item()))
 
 
-def _compact(parts) -> tuple:
+def _compact(parts, mesh=None) -> tuple:
     """Per-shard operator blocks, in bf16 when that cast is lossless on
-    every shard (exact for the Poisson stencils and their Galerkin levels),
-    else f32: the same rule as the single-device ``dia_to_device``."""
-    if all(torch.equal(t.to(torch.bfloat16).float(), t) for t in parts):
+    every shard (exact for the Poisson stencils and their Galerkin levels;
+    on a process mesh, every rank's shards), else f32: the same rule as the
+    single-device ``dia_to_device``."""
+    lossy = [(~torch.eq(t.to(torch.bfloat16).float(), t)).any().int()
+             for t in parts]
+    if not bool(pmax(lossy, mesh)):
         return tuple(t.to(torch.bfloat16) for t in parts)
     return tuple(parts)
+
+
+def _gather_planes(data, mesh) -> torch.Tensor:
+    """The full ``(ndiag, n)`` planes of per-shard ``(ndiag, n_loc)``
+    blocks (every rank's)."""
+    local = torch.cat(list(data), dim=1)
+    return mesh.all_gather(local).permute(1, 0, 2).reshape(local.shape[0],
+                                                           -1)
 
 
 def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
@@ -195,16 +223,18 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
         data0 = torch.from_numpy(np.ascontiguousarray(data0, np.float32))
     data = None
     if dims[0] % d == 0:
-        data = tuple(c.contiguous() for c in torch.chunk(
-            data0.to(dev, torch.float32), d, dim=1))
+        first = first_shard(mesh)
+        data = tuple(c.to(dev, torch.float32).contiguous()
+                     for c in torch.chunk(data0, d, dim=1)
+                     [first:first + mesh.local])
 
     sh_levels = []
     n = _prod(dims)
     while n > params.coarse_size and len(sh_levels) < params.max_levels - 1:
         if dims[0] % d != 0 or n // d < agg_rows_per_dev:
             break
-        sums = psum([t.double().sum(dim=1) for t in data])
-        counts = psum([(t != 0).sum(dim=1) for t in data])
+        sums = psum([t.double().sum(dim=1) for t in data], mesh)
+        counts = psum([(t != 0).sum(dim=1) for t in data], mesh)
         means = (sums / counts.clamp(min=1)).cpu().numpy()
         axes = strong_axes_from_values(offsets, means, dims, params.theta)
         if not any(axes):
@@ -215,14 +245,15 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
                             for dd, c in zip(dims, axes))
         hl, hr = slab_halos(offsets, dims)
         op = SlabDia(data=data, offsets=tuple(offsets), dims=dims, hl=hl,
-                     hr=hr)
+                     hr=hr, mesh=mesh)
         data_c, err, scale = _comb_rap_local(op, coarse_dims=coarse_dims,
                                              axes=axes)
         if err > 2e-4 * (scale + 1e-30):
             raise ValueError(
                 f"distributed comb RAP radius contract violated: {err}")
         offs_c = coarse_offsets(coarse_dims)
-        maxes = pmax([t.abs().amax(dim=1) for t in data_c]).cpu().numpy()
+        maxes = pmax([t.abs().amax(dim=1) for t in data_c],
+                     mesh).cpu().numpy()
         keep = [k for k in range(len(offs_c)) if maxes[k] > 0]
         keep_t = torch.tensor(keep, dtype=torch.int64, device=dev)
         data_c = tuple(t.index_select(0, keep_t).contiguous()
@@ -245,7 +276,7 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
             "single-device setup (amg_setup) for this problem and mesh")
     # agglomerated tail: pull the (small) remaining operator once, finish
     # with the host structured setup, replicate those levels
-    a_tail = Dia(data=torch.cat(data, dim=1).cpu().numpy(),
+    a_tail = Dia(data=_gather_planes(data, mesh).cpu().numpy(),
                  offsets=tuple(offsets), dims=dims)
     # the tail shares the user's level budget with the sharded prefix
     tail_params = dataclasses.replace(
@@ -259,14 +290,15 @@ def dist_structured_setup(a: Dia, grid, mesh, params: AMGParams = AMGParams(),
         omega = float(jacobi_omega(lmax, params))
         shape = dict(fine_shape=dms, coarse_shape=cdims, coarsened=axes)
         levels.append(DistLevel(
-            a=SlabDia(data=_compact(dat), offsets=tuple(offs), dims=dms,
-                      hl=hl, hr=hr, transport=transport),
-            dinv=dinv, p=SlabProlong(**shape, slice_in=trans),
-            r=SlabRestrict(**shape, gather_out=trans), lmax=lmax,
+            a=SlabDia(data=_compact(dat, mesh), offsets=tuple(offs),
+                      dims=dms, hl=hl, hr=hr, transport=transport,
+                      mesh=mesh),
+            dinv=dinv, p=SlabProlong(**shape, slice_in=trans, mesh=mesh),
+            r=SlabRestrict(**shape, gather_out=trans, mesh=mesh), lmax=lmax,
             s=[t * omega for t in dinv], sharded=True))
     for lv in tail.levels:
         levels.append(DistLevel(
             a=lv.a, dinv=lv.dinv_dev, p=lv.p, r=lv.r, lmax=lv.lmax, s=lv.s,
             sharded=False))
     return DistHierarchy(levels=tuple(levels), coarse_chol=tail.coarse_chol,
-                         params=params)
+                         params=params, mesh=mesh)

@@ -25,7 +25,12 @@ reference's rules:
 ``partition_hierarchy`` decides the layout and keeps host arrays;
 ``place_hierarchy`` puts every block on the mesh's device (z-slab arrays
 split into their ``d`` blocks; ELL blocks as ``Csr``, in bf16 when that
-cast is lossless on every block, else f32; int32 columns).
+cast is lossless on every block, else f32; int32 columns). On a mesh
+over processes it places this rank's blocks only (the decisions above are
+taken on the whole host partition, which every rank holds); replicated
+levels and the coarse factor are placed whole on every rank. Vectors stay
+global: ``pad_vector`` pads the full vector, ``mesh.shard`` takes the
+rank's blocks and ``mesh.gather`` returns the full vector on every rank.
 """
 
 from __future__ import annotations
@@ -308,12 +313,20 @@ def with_transport(dh: DistHierarchy, transport: str) -> DistHierarchy:
         for lv in dh.levels))
 
 
+def _local(blocks, mesh) -> tuple:
+    """The blocks of this process's shards."""
+    return tuple(blocks[mesh.first:mesh.first + mesh.local])
+
+
 def _split(t: torch.Tensor, mesh) -> tuple:
+    """This process's row blocks of ``t`` (the last axis split into
+    ``mesh.size`` blocks)."""
     if t.shape[-1] % mesh.size:
         raise ValueError(f"{t.shape[-1]} rows do not split into "
                          f"{mesh.size} shards")
-    return tuple(c.contiguous()
-                 for c in torch.chunk(t.to(mesh.device), mesh.size, dim=-1))
+    chunks = torch.chunk(t, mesh.size, dim=-1)
+    return tuple(c.to(mesh.device).contiguous()
+                 for c in _local(chunks, mesh))
 
 
 def _value_dtype(vals) -> torch.dtype:
@@ -342,8 +355,11 @@ def _block_cols(op: DistOp) -> int:
     return op.n_in_real
 
 
-def _place_op(op, device):
-    """A host ELL operator (``DistOp`` or ``HostEll``) as device ``Csr``."""
+def _place_op(op, mesh):
+    """A host ELL operator (``DistOp`` or ``HostEll``) as device ``Csr``:
+    a ``DistOp``'s blocks of this process's shards, with the value type
+    decided on every shard's block."""
+    device = mesh.device
     if isinstance(op, HostEll):
         return _csr(op.col, op.val, op.n_cols, _value_dtype([op.val]),
                     device)
@@ -351,13 +367,15 @@ def _place_op(op, device):
         return op
     dt = _value_dtype([v for _, v in op.blocks])
     n_cols = _block_cols(op)
-    blocks = tuple(_csr(c, v, n_cols, dt, device) for c, v in op.blocks)
+    blocks = tuple(_csr(c, v, n_cols, dt, device)
+                   for c, v in _local(op.blocks, mesh))
     tblocks = None
     if op.tblocks is not None:
         tdt = _value_dtype([v for _, v in op.tblocks])
         tblocks = tuple(_csr(c, v, _block_rows(b), tdt, device)
-                        for (c, v), b in zip(op.tblocks, blocks))
-    return replace(op, blocks=blocks, tblocks=tblocks)
+                        for (c, v), b in zip(_local(op.tblocks, mesh),
+                                             blocks))
+    return replace(op, blocks=blocks, tblocks=tblocks, mesh=mesh)
 
 
 def _vector(v, mesh, sharded: bool):
@@ -373,22 +391,31 @@ def place_hierarchy(dh: DistHierarchy, mesh) -> DistHierarchy:
     ``dinv``, ``s``) split into their ``mesh.size`` row blocks; ELL
     operators as per-shard (or, replicated, single) ``Csr`` blocks, their
     ``dinv`` and ``s`` split likewise (the z-slab family's replicated
-    levels stay as built: on the device of the setup that made them)."""
+    levels stay as built: on the device of the setup that made them). On a
+    process mesh, this rank's blocks only; every sharded operator and the
+    hierarchy carry the mesh."""
+    def slab(op):
+        if isinstance(op, (SlabProlong, SlabRestrict)):
+            return replace(op, mesh=mesh)
+        return op
+
     levels = []
     for lv in dh.levels:
         if isinstance(lv.a, SlabDia):
-            lv = replace(lv, a=replace(lv.a, data=_split(lv.a.data, mesh)),
+            lv = replace(lv, a=replace(lv.a, data=_split(lv.a.data, mesh),
+                                       mesh=mesh),
+                         p=slab(lv.p), r=slab(lv.r),
                          dinv=list(_split(lv.dinv, mesh)),
                          s=list(_split(lv.s, mesh)))
         elif isinstance(lv.a, (DistOp, HostEll)):
-            lv = replace(lv, a=_place_op(lv.a, mesh.device),
-                         p=_place_op(lv.p, mesh.device),
-                         r=_place_op(lv.r, mesh.device),
+            lv = replace(lv, a=_place_op(lv.a, mesh),
+                         p=_place_op(lv.p, mesh),
+                         r=_place_op(lv.r, mesh),
                          dinv=_vector(lv.dinv, mesh, lv.sharded),
                          s=_vector(lv.s, mesh, lv.sharded))
         levels.append(lv)
     return replace(dh, levels=tuple(levels),
-                   coarse_chol=dh.coarse_chol.to(mesh.device))
+                   coarse_chol=dh.coarse_chol.to(mesh.device), mesh=mesh)
 
 
 def pad_vector(x, dh: DistHierarchy, ndev: int):

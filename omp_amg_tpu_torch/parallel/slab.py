@@ -12,12 +12,17 @@ distributed primitive a plane exchange:
 - ``SlabProlong``/``SlabRestrict``: the tensor-product grid transfers
   applied slab-locally; only the z-axis needs one neighbour plane.
 
-A sharded vector is a list of per-shard tensors (:mod:`.mesh`). The halo
-transports are ``"ppermute"`` (plain strip copies, the default, as in the
-reference) and ``"remote"``: the hand-written ``remote_halo`` kernel
-(``ops/remote_halo.py``), the counterpart of the reference's Pallas
-``"pallas"`` transport with its zero mask and concatenation, which writes
-every shard's window in one launch.
+A sharded vector is a list of per-shard tensors (:mod:`.mesh`): this
+process's shards, every shard on one process. The
+operators carry their mesh (``mesh``, set at placement; None: every shard
+in this process), and the strips that cross a process boundary travel
+through it. The halo transports are ``"ppermute"`` (plain strip copies, the
+default, as in the reference) and ``"remote"``: the hand-written
+``remote_halo`` kernel (``ops/remote_halo.py``), the counterpart of the
+reference's Pallas ``"pallas"`` transport with its zero mask and
+concatenation, which writes every local shard's window in one launch; on a
+process mesh it reads the neighbours' strips from their CUDA IPC mailboxes
+(``ShardMesh.remote_windows``).
 
 The reference splits each product into interior and boundary rows so that
 XLA can overlap the interior with the exchange; per row both sum the same
@@ -38,6 +43,7 @@ from ..amg.structured import _prolong_axis, _restrict_axis
 from ..ops import dia_spmv
 from ..ops.remote_halo import remote_halo_window
 from ..sparse.formats import Dia
+from .mesh import first_shard, gather, outer_strips, spans
 
 TRANSPORTS = ("ppermute", "remote")
 
@@ -68,9 +74,15 @@ class SlabDia:
     hl: int = 0                        # left halo planes
     hr: int = 0                        # right halo planes
     transport: str = "ppermute"
+    mesh: object = None                # the mesh of the placed blocks
 
     def __post_init__(self):
         check_transport(self.transport)
+
+    @property
+    def nshards(self) -> int:
+        """Global shard count."""
+        return self.mesh.size if self.mesh is not None else len(self.blocks)
 
     @property
     def plane(self) -> int:
@@ -98,6 +110,7 @@ class SlabProlong:
     coarse_shape: Tuple[int, ...]
     coarsened: Tuple[bool, ...]
     slice_in: bool = False   # input replicated: each shard slices its window
+    mesh: object = None
 
 
 @dataclass(frozen=True)
@@ -108,6 +121,7 @@ class SlabRestrict:
     coarse_shape: Tuple[int, ...]
     coarsened: Tuple[bool, ...]
     gather_out: bool = False  # return the full (replicated) coarse vector
+    mesh: object = None
 
 
 def slab_halos(offsets, dims) -> Tuple[int, int]:
@@ -123,27 +137,37 @@ def slab_halos(offsets, dims) -> Tuple[int, int]:
     return max(0, -min(pzs)), max(0, max(pzs))
 
 
-def _exchange_planes(xs, plane: int, hl: int, hr: int):
+def _exchange_planes(xs, plane: int, hl: int, hr: int, mesh=None):
     """Per shard ``[left strip | x | right strip]``, non-circular: shards
-    with no neighbour (the global ends) receive zeros."""
+    with no neighbour (the global ends) receive zeros. On a process mesh
+    the strips beyond this rank's shards come from its neighbours."""
     d = len(xs)
     nl, nr = hl * plane, hr * plane
+    left, right = outer_strips(xs, nl, nr, mesh)
     out = []
     for i, x in enumerate(xs):
         parts = [x]
         if nl:
             parts.insert(0, xs[i - 1][x.numel() - nl:] if i > 0
-                         else x.new_zeros(nl))
+                         else left if left is not None else x.new_zeros(nl))
         if nr:
-            parts.append(xs[i + 1][:nr] if i < d - 1 else x.new_zeros(nr))
+            parts.append(xs[i + 1][:nr] if i < d - 1
+                         else right if right is not None
+                         else x.new_zeros(nr))
         out.append(torch.cat(parts) if len(parts) > 1 else x)
     return out
 
 
-def _exchange_planes_remote(xs, plane: int, hl: int, hr: int):
+def _exchange_planes_remote(xs, plane: int, hl: int, hr: int, mesh=None):
     """:func:`_exchange_planes` through the ``remote_halo`` kernel: every
-    shard's window, the global ends zero, in one launch."""
-    if len(xs) == 1 or (hl == 0 and hr == 0):
+    shard's window, the global ends zero, in one launch (on a process mesh
+    through the neighbours' IPC mailboxes)."""
+    if hl == 0 and hr == 0:
+        return list(xs)
+    if spans(mesh):
+        return list(mesh.remote_windows(xs, hl * plane, hr * plane)
+                    .unbind(0))
+    if len(xs) == 1:
         return _exchange_planes(xs, plane, hl, hr)
     return list(remote_halo_window(xs, hl * plane, hr * plane).unbind(0))
 
@@ -157,12 +181,13 @@ def slab_windows(op: SlabDia, xs, transport: str):
     n_loc = xs[0].numel()
     plane = op.plane
     if max(op.hl, op.hr) * plane > n_loc:
-        xg = torch.cat(xs)
-        return [(xg, i * n_loc) for i in range(len(xs))]
+        xg = gather(xs, op.mesh)
+        first = first_shard(op.mesh)
+        return [(xg, (first + i) * n_loc) for i in range(len(xs))]
     exchange = (_exchange_planes_remote if transport == "remote"
                 else _exchange_planes)
     base = op.hl * plane
-    return [(w, base) for w in exchange(xs, plane, op.hl, op.hr)]
+    return [(w, base) for w in exchange(xs, plane, op.hl, op.hr, op.mesh)]
 
 
 def slab_apply(op: SlabDia, xs, mode: str = "spmv", bs=None, ss=None):
@@ -197,14 +222,19 @@ def slab_prolong(p: SlabProlong, xc, d: int):
         nzc_l = cs[0] // d
         xfull = torch.nn.functional.pad(xc, (0, cplane)) if cz[0] else xc
         span = (nzc_l + 1 if cz[0] else nzc_l) * cplane
+        first = first_shard(p.mesh)
+        local = p.mesh.local if p.mesh is not None else d
         vs = [xfull[i * nzc_l * cplane: i * nzc_l * cplane + span]
-              .reshape(-1, *cs[1:]) for i in range(d)]
+              .reshape(-1, *cs[1:]) for i in range(first, first + local)]
     else:
         vs = [x.reshape(-1, *cs[1:]) for x in xc]
         if cz[0]:
             # right halo: my fine plane 2j+1 at the slab top needs c(j+1)
-            vs = [torch.cat([v, vs[i + 1][:1] if i + 1 < d
-                             else torch.zeros_like(v[:1])])
+            _, right = outer_strips(xc, 0, cplane, p.mesh)
+            last = (right.reshape(1, *cs[1:]) if right is not None
+                    else torch.zeros_like(vs[-1][:1]))
+            n = len(vs)
+            vs = [torch.cat([v, vs[i + 1][:1] if i + 1 < n else last])
                   for i, v in enumerate(vs)]
     out = []
     for v in vs:
@@ -234,10 +264,16 @@ def slab_restrict(r: SlabRestrict, xf):
             if cz[ax]:
                 x = _restrict_axis(x, ax, cs[ax])
         xs.append(x)
+    first_strip = torch.zeros_like(xs[0][:1])
+    if cz[0]:
+        left, _ = outer_strips([x.reshape(-1) for x in xs],
+                               xs[0][0].numel(), 0, r.mesh)
+        if left is not None:
+            first_strip = left.reshape(first_strip.shape)
     out = []
     for i, x in enumerate(xs):
         if cz[0]:
-            strip = xs[i - 1][-1:] if i > 0 else torch.zeros_like(x[:1])
+            strip = xs[i - 1][-1:] if i > 0 else first_strip
             ext = torch.cat([strip, x])
             nzc_l = x.shape[0] // 2
             even = ext[1::2]                   # f(2j)
@@ -245,4 +281,4 @@ def slab_restrict(r: SlabRestrict, xf):
             rgt = ext[2::2]                    # f(2j+1)
             x = even + 0.5 * (lft + rgt)
         out.append(x.reshape(-1).contiguous())
-    return torch.cat(out) if r.gather_out else out
+    return gather(out, r.mesh) if r.gather_out else out

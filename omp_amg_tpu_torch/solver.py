@@ -25,6 +25,13 @@
                            refreshable=True)       # (per-shard setup)
     solver.refresh(a_new)                          # distributed refresh
 
+    from omp_amg_tpu_torch.parallel.multihost import (
+        global_mesh, maybe_initialize)
+    maybe_initialize()                             # every process of a
+    solver = amg.AMGSolver(a, amg.AMGParams(coarsening="pmis"),
+                           mesh=global_mesh(2))    # launch: 2 shards each
+    x = solver.solve(b)                            # the full x on every rank
+
     solver = amg.AMGSolver(a, amg.AMGParams(smoother="chebyshev",
                                             cycle="w"), grid=(128,) * 3)
     x = solver.solve(b, variant="pipelined",       # single-reduction PCG
@@ -75,8 +82,9 @@ class AMGSolver:
     """AMG-preconditioned CG solver with amortized setup (classical PMIS or,
     with ``grid=``, structured hierarchy; f64-certified by default).
 
-    With ``mesh`` (a :class:`~.parallel.mesh.ShardMesh` on ``device``), the
-    problem builds and solves distributed: a structured one over z-slabs
+    With ``mesh`` (a :class:`~.parallel.mesh.ShardMesh` on ``device``; one
+    over processes from :func:`~.parallel.multihost.global_mesh`, every
+    rank calling with the same arguments), the problem builds and solves distributed: a structured one over z-slabs
     (the per-shard :func:`~.parallel.dist_setup.dist_structured_setup`), a
     classical one (``coarsening="pmis"``, or ``"auto"`` without a grid or a
     ``Dia``) by row blocks (the per-shard
@@ -85,9 +93,11 @@ class AMGSolver:
     :meth:`refresh`); when the per-shard setup raises ValueError, the
     central setup partitioned (:mod:`~.parallel.partition`). The certified
     solve runs the sharded f64 refinement loop (:mod:`~.parallel.dist_ir`)
-    against the user's operator in float64. ``transport`` picks the halo
-    exchange of the V-cycle and PCG: ``"ppermute"`` (plain copies) or
-    ``"remote"`` (the ``remote_halo`` kernel).
+    against the user's operator in float64; on a process mesh every rank
+    gets the full x. ``transport`` picks the halo exchange of the V-cycle
+    and PCG: ``"ppermute"`` (plain copies) or ``"remote"`` (the
+    ``remote_halo`` kernel; between processes through CUDA IPC, so on the
+    card only).
 
     ``flavor="device"`` runs the single-device setup's own kernels on the
     device (:func:`~.amg.hierarchy.amg_setup`); it raises ValueError with
@@ -141,10 +151,13 @@ class AMGSolver:
             DistSetupCache, dist_pmis_setup,
         )
         from .parallel.dist_setup import dist_structured_setup
+        from .parallel.mesh import check_remote
         from .parallel.partition import partition_hierarchy, place_hierarchy
         from .parallel.slab import check_transport
 
         check_transport(transport)
+        if transport == "remote":
+            check_remote(self.mesh)
         want = torch.device(device)
         if want.type != self.mesh.device.type or (
                 want.index is not None

@@ -24,8 +24,12 @@ dict of device tensors, or of per-shard lists of them):
 
 - ``graph=False``: the per-iteration loop, one unmasked step per host read
   of ``active``;
-- ``graph=True`` on CPU tensors: the eager block loop, ``BLOCK`` masked
-  steps per host read of ``active``, the arithmetic the graph records;
+- ``graph=True`` on CPU tensors, or with ``capture=False`` (a process
+  mesh, whose collectives run on the host and cannot be captured) on any
+  device: the eager block loop, ``BLOCK`` masked steps per host read of
+  ``active``, the arithmetic the graph records, as an :class:`EagerBlocks`
+  runner cached on the owner, so that :func:`graph_stats` reports it
+  (``captured: False`` and the reason);
 - ``graph=True`` on CUDA tensors: :class:`Captured`, two CUDA graphs over
   static buffers (b, the f32 ``tol``, the state), the start and a block of
   ``BLOCK`` masked steps, captured once per (owner, key) with one private
@@ -174,15 +178,23 @@ def _block(program: Program, st: dict, k_block: int) -> dict:
     return st
 
 
-def _eager(program: Program, b, tol: float, x0, k_block):
+def _eager(program: Program, b, tol: float, x0, k_block, stats=None):
     """The eager loops: ``k_block`` masked steps per read of ``active``, or
-    (``k_block=None``) one unmasked step per read."""
+    (``k_block=None``) one unmasked step per read. ``stats``: the block
+    loop's solves, blocks and frozen iterations are added there."""
     st = program.start(b, torch.full((), tol, dtype=torch.float32,
                                      device=_device(b)), x0)
+    blocks = 0
     while bool(st["active"]):
         st = (program.step(st, False) if k_block is None
               else _block(program, st, k_block))
-    return program.finish(st)
+        blocks += 1
+    res = program.finish(st)
+    if stats is not None:
+        stats["solves"] += 1
+        stats["blocks"] += blocks
+        stats["frozen"] += blocks * k_block - res.iters
+    return res
 
 
 class Captured:
@@ -238,6 +250,7 @@ class Captured:
         _restore(c0)
         self.start_inc, self.block_inc = _delta(c1, c0), _delta(c2, c1)
         self.stats = {
+            "captured": True,
             "capture_s": time.perf_counter() - t0,
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
             "solves": 0, "blocks": 0, "frozen": 0, "enqueue_s": 0.0,
@@ -270,18 +283,44 @@ class Captured:
         return res._replace(x=_clone(res.x))
 
 
+class EagerBlocks:
+    """The eager block loop as a cached runner with the stats of
+    :class:`Captured` (blocks and frozen iterations per solve), for a
+    program that cannot be captured: ``reason`` says why."""
+
+    def __init__(self, k_block: int, reason: str):
+        self.k_block = k_block
+        self.stats = {"captured": False, "reason": reason, "solves": 0,
+                      "blocks": 0, "frozen": 0}
+
+    def run(self, program: Program, b, tol: float, x0=None):
+        return _eager(program, b, tol, x0, self.k_block, self.stats)
+
+
+NOT_CAPTURED = {
+    "cpu": "CPU tensors: CUDA graphs need the card",
+    "mesh": ("a process mesh: its collectives run on the host (gloo) and "
+             "cannot be captured in a CUDA graph"),
+}
+
+
 def run(program: Program, b, tol: float, x0=None, *, graph: bool = True,
-        owner=None, key=None, keep=()):
+        owner=None, key=None, keep=(), capture: bool = True):
     """Run ``program`` on ``b`` (see the module docstring). On CUDA with
     ``graph=True`` the captured graphs are cached on ``owner`` under ``key``
-    (with the block size ``BLOCK``)."""
+    (with the block size ``BLOCK``); on CPU tensors, or with
+    ``capture=False`` on any device, the eager block loop is cached there
+    instead."""
     if not graph:
         return _eager(program, b, tol, x0, None)
-    if _device(b).type != "cuda":
-        return _eager(program, b, tol, x0, BLOCK)
     cache = owner.__dict__.setdefault("_graphs", {})
     key = (key, BLOCK)
     runner = cache.get(key)
+    if not capture or _device(b).type != "cuda":
+        if runner is None:
+            runner = cache[key] = EagerBlocks(
+                BLOCK, NOT_CAPTURED["mesh" if not capture else "cpu"])
+        return runner.run(program, b, tol, x0)
     if runner is None:
         runner = cache[key] = Captured(program, b, x0, BLOCK, keep)
     return runner.run(b, tol, x0)

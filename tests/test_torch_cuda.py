@@ -265,12 +265,14 @@ def test_remote_halo_exact(d, n, nl, nr, source):
     out = torch.empty_like(want)
     lib = cuda_kernels()
     assert lib.remote_halo_window_launch(d, n, nl, nr, out.shape[1], 0, table,
-                                         out.data_ptr(), stream) == 0
+                                         None, None, out.data_ptr(),
+                                         stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     if not vec:    # the vector path refuses what it cannot take
         assert lib.remote_halo_window_launch(
-            d, n, nl, nr, out.shape[1], 1, table, out.data_ptr(), stream) != 0
+            d, n, nl, nr, out.shape[1], 1, table, None, None, out.data_ptr(),
+            stream) != 0
     with pytest.raises(ValueError):
         remote_halo.remote_halo_window(srcs + [srcs[0]] * (65 - d), 1, 1)
 
@@ -972,3 +974,118 @@ def test_device_to_const_dia_matches_host():
                        grid=(32,) * 3, device="cuda").levels[1].a
     assert to_const_dia(Dia(data=lv.data.float(), offsets=lv.offsets,
                             dims=lv.dims)) is None
+
+
+# --- the cross-process form of remote_halo (slice 13) ------------------------
+
+def test_remote_halo_outer_strips_match_twin():
+    """The kernel's two outer table entries (the cross-process form) read
+    in one process from ordinary tensors: exact against the twin with the
+    same strips, on both paths, and zero-filled where an entry is null."""
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    for n, nl, nr in ((4096, 256, 128), (1001, 7, 5)):
+        srcs = [_vec(rng, n) for _ in range(3)]
+        lo, hi = _vec(rng, nl), _vec(rng, nr)
+        for outer, plain in (((lo.data_ptr(), hi.data_ptr()), (lo, hi)),
+                             ((None, hi.data_ptr()), (None, hi)),
+                             ((lo.data_ptr(), None), (lo, None))):
+            before = (remote_halo.launches, remote_halo.ipc_launches)
+            got = remote_halo.remote_halo_window(srcs, nl, nr, outer=outer)
+            assert (remote_halo.launches, remote_halo.ipc_launches) == (
+                before[0] + 1, before[1] + 1)
+            want = remote_halo.remote_halo_window_plain(srcs, nl, nr, *plain)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+_IPC_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from omp_amg_tpu_torch.parallel.multihost import global_mesh, maybe_initialize
+from omp_amg_tpu_torch.ops import remote_halo
+from omp_amg_tpu_torch._build import cuda_kernels
+
+assert maybe_initialize()
+mesh = global_mesh(2)                      # two ranks on the one card
+n, nl, nr = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+rng = np.random.default_rng(5)
+full = torch.from_numpy(rng.standard_normal(mesh.size * n)
+                        .astype(np.float32)).cuda()
+xs = mesh.shard(full)
+res = {}
+# the mailbox round trip: my neighbours' posted strips, read back here
+# through the buffers opened by CUDA IPC
+box = remote_halo.Mailboxes(mesh)
+box._grow(nl + nr)
+lib = cuda_kernels()
+stream = torch.cuda.current_stream().cuda_stream
+assert lib.remote_halo_post(box.own, xs[0].data_ptr(), nr, xs[-1].data_ptr(),
+                            n, nl, stream) == 0
+box._quiesce()
+shards = full.view(mesh.size, n)
+ok = []
+for ptr, rank in ((box.left, mesh.rank - 1), (box.right, mesh.rank + 1)):
+    if not ptr:
+        continue
+    got = torch.empty(nr + nl, device="cuda")
+    assert lib.remote_halo_post(got.data_ptr(), ptr, nr + nl, ptr, 0, 0,
+                                stream) == 0
+    torch.cuda.synchronize()
+    mine = shards[rank * mesh.local:(rank + 1) * mesh.local]
+    want = torch.cat([mine[0][:nr], mine[-1][n - nl:]])
+    ok.append(bool(torch.equal(got, want)))
+res["round_trip"] = ok
+box.close()
+# the cross-process windows against the one-process kernel on all shards
+for rep in range(3):                       # both mailbox slots, and again
+    got = mesh.remote_windows(xs, nl, nr)
+    want = remote_halo.remote_halo_window(list(shards), nl, nr)[
+        mesh.first:mesh.first + mesh.local]
+    torch.cuda.synchronize()
+    res.setdefault("windows", []).append(bool(torch.equal(got, want)))
+res["ipc_launches"] = remote_halo.ipc_launches
+mesh.close()
+print("RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def test_remote_halo_across_two_processes_on_one_card():
+    """Two ranks on the one card (gloo, CUDA IPC mailboxes): each reads its
+    neighbour's posted strips back through the opened buffer (the IPC round
+    trip), and its cross-process windows are exactly the one-process
+    kernel's windows of the same shards, over both mailbox slots."""
+    _need_cuda()
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for n, nl, nr in ((65536, 4096, 4096), (999, 13, 7)):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port_ = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _IPC_CHILD, str(n), str(nl), str(nr)],
+            env=dict(os.environ, OMP_AMG_COORDINATOR=f"127.0.0.1:{port_}",
+                     OMP_AMG_NUM_PROCS="2", OMP_AMG_PROC_ID=str(r)),
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append((p.communicate(timeout=120), p.returncode))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for (out, err), rc in outs:
+            assert rc == 0, err[-3000:]
+            res = json.loads(next(ln for ln in out.splitlines()
+                                  if ln.startswith("RESULT "))[7:])
+            assert res["round_trip"] == [True]
+            assert res["windows"] == [True] * 3
+            assert res["ipc_launches"] == 3

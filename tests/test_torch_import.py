@@ -1,7 +1,7 @@
 """The port stands alone: importing ``omp_amg_tpu_torch`` (every module of
 it, the distributed ``parallel`` package, the ``remote_halo`` kernel
-wrapper, the refresh, I/O, timers and CLI modules and the captured-block
-runner included), running small CPU solves on its paths (classical PMIS
+wrapper, the refresh, I/O, timers and CLI modules, the captured-block
+runner, the multi-process entry and the scaling model included), running small CPU solves on its paths (classical PMIS
 with the host and with the probed Galerkin values, structured with
 ``grid=``, structured on a 4-shard ``ShardMesh`` with the remote halo
 transport, and a refreshed PMIS hierarchy) and the public sparse API
@@ -27,6 +27,8 @@ import omp_amg_tpu_torch.ops.remote_halo
 import omp_amg_tpu_torch.parallel.dist_ir
 import omp_amg_tpu_torch.parallel.dist_setup
 import omp_amg_tpu_torch.parallel.partition
+import omp_amg_tpu_torch.parallel.multihost
+import omp_amg_tpu_torch.parallel.scaling_model
 import omp_amg_tpu_torch.amg.refresh
 import omp_amg_tpu_torch.cli
 import omp_amg_tpu_torch.utils.io
