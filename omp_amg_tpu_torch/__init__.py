@@ -38,7 +38,8 @@ the PMIS setup's strength, C/F split and direct interpolation (the
 Galerkin product stays on the host), or the whole structured setup, its
 Galerkin product included; its λmax runs through ``dia_spmv.cu`` and
 ``csr_spmv.cu``. ``OMP_AMG_SETUP_TIMERS=1`` traces the setups' phases
-(``last_setup_trace``).
+(``last_setup_trace``); ``utils/trace.py`` holds that trace and the
+program's spans on ``torch.profiler``'s timeline.
 
 Every smoother (weighted and l1 Jacobi, Chebyshev), cycle (V, W, F),
 coarse solve (Cholesky, inverse) and PCG variant (standard, pipelined) of
@@ -62,7 +63,7 @@ Imports torch, numpy and scipy; never JAX or ``omp_amg_tpu``.
 """
 
 from .amg.hierarchy import (  # noqa: F401
-    Hierarchy, Level, amg_setup, hierarchy_stats, last_setup_trace,
+    Hierarchy, Level, amg_setup, hierarchy_stats,
 )
 from .amg.params import AMGParams  # noqa: F401
 from .amg.refresh import (  # noqa: F401
@@ -93,3 +94,4 @@ from .utils.io import (  # noqa: F401
     load_hierarchy, read_matrix_market, save_hierarchy, write_matrix_market,
 )
 from .utils.timers import PhaseTimers  # noqa: F401
+from .utils.trace import last_setup_trace  # noqa: F401

@@ -17,7 +17,8 @@ csrc``), with two differences:
 CXXFLAGS of ``csrc/Makefile``, so the host setup is bit-identical to the
 reference's on the same machine. ``cuda_library()`` builds
 ``omp_amg_tpu_torch/csrc/*.cu`` with nvcc for Hopper (``sm_90a``) into one
-library with a plain C interface, loaded with ctypes.
+library with a plain C interface, loaded with ctypes. Each compiler run
+is a ``build.<library>`` span under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from .utils.trace import span
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
@@ -68,9 +71,11 @@ def _compile(stem: str, compiler: str, flags, sources) -> Path:
                                    suffix=".so")
         os.close(fd)
         try:
-            proc = subprocess.run(
-                [compiler, *flags, "-o", tmp, *(str(s) for s in sources)],
-                capture_output=True, text=True, timeout=900)
+            with span(f"build.{stem}"):
+                proc = subprocess.run(
+                    [compiler, *flags, "-o", tmp,
+                     *(str(s) for s in sources)],
+                    capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"{compiler} failed to build {stem} "

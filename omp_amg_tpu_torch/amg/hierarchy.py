@@ -38,15 +38,12 @@ strength, C/F split and direct interpolation, with the Galerkin product on
 the host; the structured setup whole, every level's operator on the device
 (``comb_rap.comb_rap_device``). Their ``dinv`` is a device tensor. Both
 flavors, and the refresh, mark their phases in the opt-in setup trace
-(``OMP_AMG_SETUP_TIMERS=1``, :func:`last_setup_trace`) with the
-reference's labels.
+(``OMP_AMG_SETUP_TIMERS=1``, :func:`~.utils.trace.last_setup_trace`)
+with the reference's labels, each phase a ``setup.<label>`` span.
 """
 
 from __future__ import annotations
 
-import os
-import sys
-import time
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -59,47 +56,11 @@ from ..sparse.formats import (
     ell_planes_from_scipy, ell_planes_to_scipy, to_const_dia,
 )
 from ..utils.device import resolve_device
+from ..utils.trace import SetupTrace
 from .params import AMGParams
 from .structured import GridProlong, GridRestrict
 
 BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
-
-
-class _SetupTrace:
-    """Opt-in per-phase setup timing (``OMP_AMG_SETUP_TIMERS=1``): each
-    ``mark(label)`` prints ``[setup] <label>: <s>`` to stderr, the seconds
-    since the previous mark, and keeps the record. ``mark`` takes an
-    optional tensor to sync on (a CUDA tensor: ``torch.cuda.synchronize``
-    first, so the phase ends when its device work does). The most recent
-    enabled trace is kept for :func:`last_setup_trace`."""
-
-    def __init__(self):
-        self.enabled = os.environ.get("OMP_AMG_SETUP_TIMERS") == "1"
-        if self.enabled:
-            global _LAST_TRACE
-            self.records = []
-            _LAST_TRACE = self.records
-            self.t = time.perf_counter()
-
-    def mark(self, label: str, sync=None):
-        if not self.enabled:
-            return
-        if isinstance(sync, torch.Tensor) and sync.is_cuda:
-            torch.cuda.synchronize(sync.device)
-        now = time.perf_counter()
-        self.records.append((label, now - self.t))
-        print(f"[setup] {label}: {now - self.t:.3f}s", file=sys.stderr,
-              flush=True)
-        self.t = now
-
-
-_LAST_TRACE: list = []
-
-
-def last_setup_trace():
-    """Per-phase (label, seconds) records of the most recent traced setup
-    (``OMP_AMG_SETUP_TIMERS=1``)."""
-    return list(_LAST_TRACE)
 
 
 @dataclass(frozen=True)
@@ -325,7 +286,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     refresh computes A_c's values on the host, as the reference's does.
 
     ``OMP_AMG_SETUP_TIMERS=1`` traces the setup's phases
-    (:func:`last_setup_trace`).
+    (:func:`~.utils.trace.last_setup_trace`).
 
     Returns ``Hierarchy``, and with ``keep_host=True`` also a ``HostSetup``.
     """
@@ -384,62 +345,64 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
 
     levels = []
     host = HostSetup(ops=[a_sp], states=[], p=[])
-    trace = _SetupTrace()
+    trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
            and len(levels) < params.max_levels - 1):
         n = a_sp.shape[0]
         l = len(levels)
-        if cur_planes is None:
-            cur_planes = ell_planes_from_scipy(a_sp, dtype=np.float32)[:2]
-        col, val = cur_planes
-        mask = hs.strength_mask_host(col, val, params.theta)
-        trace.mark(f"L{l} n={n} strength")
-        state = hs.pmis_host(col, mask, max_rounds=params.max_coarsen_rounds)
-        trace.mark(f"L{l} pmis")
+        with trace.phase(f"L{l} n={n} strength"):
+            if cur_planes is None:
+                cur_planes = ell_planes_from_scipy(a_sp,
+                                                   dtype=np.float32)[:2]
+            col, val = cur_planes
+            mask = hs.strength_mask_host(col, val, params.theta)
+        with trace.phase(f"L{l} pmis"):
+            state = hs.pmis_host(col, mask,
+                                 max_rounds=params.max_coarsen_rounds)
         is_c = (state == hs.CPOINT)
         cmap = np.cumsum(is_c.astype(np.int64)) - 1
         nc = int(is_c.sum())
         if nc == 0 or n / max(nc, 1) < params.min_coarsen_factor:
             break
-        if params.interp == "standard":
-            p_col, p_val = hs.standard_interpolation_np(
-                col, val, mask, state, cmap, nc,
-                max_elements=params.interp_max_elements)
-        elif params.interp == "extpi":
-            p_col, p_val = hs.extpi_interpolation(
-                col, val, mask, state, cmap, nc,
-                max_elements=params.interp_max_elements)
-        else:
-            p_col, p_val = hs.direct_interpolation_np(col, val, mask, state,
-                                                      cmap, nc)
-        p_sp = ell_planes_to_scipy(p_col, p_val, nc)
-        trace.mark(f"L{l} interp")
-        pt_sp = p_sp.T.tocsr()
-        trace.mark(f"L{l} transpose")
-        patterns = {} if cache is not None else None
-        ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp,
-                                 patterns_out=patterns)
-        if cache is not None:
-            cache.record_level(mask=mask, state=state, cmap=cmap, nc=nc,
-                               p_col=p_col, p_val=p_val, p_sp=p_sp,
-                               ac_sp=ac_sp, patterns=patterns)
-        if params.rap == "probe":
-            ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
-        trace.mark(f"L{l} RAP")
-        if params.smoother == "l1jacobi":
-            dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
-        else:
-            dinv = 1.0 / a_sp.diagonal()
-        lmax = _estimate_lmax_host(a_sp, dinv)
-        trace.mark(f"L{l} lmax")
-        if a_lvl is None:
-            a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device=device)
-        pr_dt = _value_dtype(n)
-        levels.append(make_level(a_lvl, dinv, lmax,
-                                 csr_from_scipy(p_sp, pr_dt, device=device),
-                                 csr_from_scipy(pt_sp, pr_dt, device=device),
-                                 params, device))
-        trace.mark(f"L{l} operator form")
+        with trace.phase(f"L{l} interp"):
+            if params.interp == "standard":
+                p_col, p_val = hs.standard_interpolation_np(
+                    col, val, mask, state, cmap, nc,
+                    max_elements=params.interp_max_elements)
+            elif params.interp == "extpi":
+                p_col, p_val = hs.extpi_interpolation(
+                    col, val, mask, state, cmap, nc,
+                    max_elements=params.interp_max_elements)
+            else:
+                p_col, p_val = hs.direct_interpolation_np(
+                    col, val, mask, state, cmap, nc)
+            p_sp = ell_planes_to_scipy(p_col, p_val, nc)
+        with trace.phase(f"L{l} transpose"):
+            pt_sp = p_sp.T.tocsr()
+        with trace.phase(f"L{l} RAP"):
+            patterns = {} if cache is not None else None
+            ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp,
+                                     patterns_out=patterns)
+            if cache is not None:
+                cache.record_level(mask=mask, state=state, cmap=cmap, nc=nc,
+                                   p_col=p_col, p_val=p_val, p_sp=p_sp,
+                                   ac_sp=ac_sp, patterns=patterns)
+            if params.rap == "probe":
+                ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
+        with trace.phase(f"L{l} lmax"):
+            if params.smoother == "l1jacobi":
+                dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
+            else:
+                dinv = 1.0 / a_sp.diagonal()
+            lmax = _estimate_lmax_host(a_sp, dinv)
+        with trace.phase(f"L{l} operator form"):
+            if a_lvl is None:
+                a_lvl = csr_from_scipy(a_sp, _value_dtype(n), device=device)
+            pr_dt = _value_dtype(n)
+            levels.append(make_level(
+                a_lvl, dinv, lmax,
+                csr_from_scipy(p_sp, pr_dt, device=device),
+                csr_from_scipy(pt_sp, pr_dt, device=device), params, device))
         if cache is not None:
             cache.levels[-1]["a_kind"] = type(a_lvl).__name__
         if keep_host:
@@ -447,8 +410,9 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
             host.p.append(p_sp)
             host.ops.append(ac_sp)
         a_sp, a_lvl = ac_sp, None
-        cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
-        trace.mark(f"L{len(levels)} next-planes")   # the reference's label
+        # the reference's label
+        with trace.phase(f"L{len(levels)} next-planes"):
+            cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
 
     hier = _finish(levels, a_sp.toarray(), params, device)
     if cache is not None:
@@ -506,45 +470,48 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
 
     levels = []
     host = HostSetup(ops=[a_sp], states=[], p=[])
-    trace = _SetupTrace()
+    trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
            and len(levels) < params.max_levels - 1):
         n = a_sp.shape[0]
         l = len(levels)
+        # strength and the C/F split count in the reference's "interp"
+        # phase, whose span opens once the level is known to coarsen
         col, val = ell_planes(a_dev)
         mask = strength_mask(col, val, params.theta)
         state = pmis(col, mask, max_rounds=params.max_coarsen_rounds)
         cmap, nc = coarse_map(state)
         if nc == 0 or n / max(nc, 1) < params.min_coarsen_factor:
             break
-        p_dev = csr_from_ell(*direct_interpolation(col, val, mask, state,
-                                                   cmap), nc)
-        del col, val, mask, cmap
-        p_sp = csr_to_scipy(p_dev)
-        p_sp.sort_indices()
-        trace.mark(f"L{l} interp")
-        pt_sp = p_sp.T.tocsr()
-        trace.mark(f"L{l} transpose")
-        ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
-        if params.rap == "probe":
-            ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
-        trace.mark(f"L{l} RAP")
-        pr_dt = _value_dtype(n)
-        r_dev = csr_from_scipy(pt_sp, pr_dt, device=device)
-        if params.smoother == "l1jacobi":
-            dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
-            lmax = _estimate_lmax_host(a_sp, dinv)
-        else:
-            dinv = 1.0 / diagonal(a_dev).to(torch.float32)
-            lmax = estimate_lmax(a_dev, dinv)
-        trace.mark(f"L{l} lmax")
-        if pr_dt != torch.float32:
-            p_dev = dataclasses.replace(p_dev, vals=p_dev.vals.to(pr_dt))
-            if isinstance(a_dev, Csr):
-                a_dev = dataclasses.replace(a_dev, vals=a_dev.vals.to(pr_dt))
-        levels.append(make_level(a_dev, dinv, lmax, p_dev, r_dev, params,
-                                 device))
-        trace.mark(f"L{l} operator form")
+        with trace.phase(f"L{l} interp"):
+            p_dev = csr_from_ell(*direct_interpolation(col, val, mask, state,
+                                                       cmap), nc)
+            del col, val, mask, cmap
+            p_sp = csr_to_scipy(p_dev)
+            p_sp.sort_indices()
+        with trace.phase(f"L{l} transpose"):
+            pt_sp = p_sp.T.tocsr()
+        with trace.phase(f"L{l} RAP"):
+            ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
+            if params.rap == "probe":
+                ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
+        with trace.phase(f"L{l} lmax"):
+            pr_dt = _value_dtype(n)
+            r_dev = csr_from_scipy(pt_sp, pr_dt, device=device)
+            if params.smoother == "l1jacobi":
+                dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
+                lmax = _estimate_lmax_host(a_sp, dinv)
+            else:
+                dinv = 1.0 / diagonal(a_dev).to(torch.float32)
+                lmax = estimate_lmax(a_dev, dinv)
+        with trace.phase(f"L{l} operator form"):
+            if pr_dt != torch.float32:
+                p_dev = dataclasses.replace(p_dev, vals=p_dev.vals.to(pr_dt))
+                if isinstance(a_dev, Csr):
+                    a_dev = dataclasses.replace(a_dev,
+                                                vals=a_dev.vals.to(pr_dt))
+            levels.append(make_level(a_dev, dinv, lmax, p_dev, r_dev, params,
+                                     device))
         if keep_host:
             host.states.append(state.cpu().numpy())
             host.p.append(p_sp)
@@ -614,11 +581,12 @@ def _amg_setup_structured(a, dims, params: AMGParams, device,
         offsets, data = dia_planes_from_scipy(a_sp)
     host = HostSetup(ops=[a_sp], states=[], p=[])
     levels = []
-    trace = _SetupTrace()
+    trace = SetupTrace()
     n = int(np.prod(dims))
     while n > params.coarse_size and len(levels) < params.max_levels - 1:
-        axes = strong_axes((offsets, data), dims, params.theta)
-        trace.mark(f"L{len(levels)} n={n} strength/axes")
+        k = len(levels)
+        with trace.phase(f"L{k} n={n} strength/axes"):
+            axes = strong_axes((offsets, data), dims, params.theta)
         if not any(axes):
             break
         coarse_dims = tuple((d + 1) // 2 if c else d
@@ -627,34 +595,35 @@ def _amg_setup_structured(a, dims, params: AMGParams, device,
                         coarsened=axes)
         r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
                          coarsened=axes)
-        try:
-            offs_c, data_c = cr.structured_rap(offsets, data, dims,
-                                               coarse_dims, axes)
-        except ValueError:
-            # operator outside the radius-1 contract → exact sparse product
-            cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
-            offs_c, data_c = dia_planes_from_scipy(
-                galerkin_product(cur_sp, prolong_to_scipy(p)))
-        trace.mark(f"L{len(levels)} RAP")
-        if params.smoother == "l1jacobi":
-            # out-of-range taps are stored as exact zeros: the row l1 norm
-            # is a plane-wise |·| sum
-            dinv = 1.0 / np.abs(data).sum(axis=0)
-        else:
-            dinv = 1.0 / data[offsets.index(0)]
-        data_f = np.ascontiguousarray(data, np.float32)
-        if n >= (1 << 18) and native.available():
-            def apply_fn(v):
-                return native.dia_apply(offsets, data_f, v)
-        else:   # small levels: the per-call OpenMP spawn outweighs the work
-            def apply_fn(v):
-                return cr.dia_apply(offsets, data_f, v)
-        lmax = _estimate_lmax_apply(apply_fn, dinv, n, dtype=np.float32)
-        trace.mark(f"L{len(levels)} lmax")
-        a_lvl = _structured_form(Dia(data=data_f, offsets=tuple(offsets),
-                                     dims=dims), params, device, len(levels))
-        trace.mark(f"L{len(levels)} operator form "
-                   f"({type(a_lvl).__name__})")
+        with trace.phase(f"L{k} RAP"):
+            try:
+                offs_c, data_c = cr.structured_rap(offsets, data, dims,
+                                                   coarse_dims, axes)
+            except ValueError:
+                # operator outside the radius-1 contract → exact sparse
+                # product
+                cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
+                offs_c, data_c = dia_planes_from_scipy(
+                    galerkin_product(cur_sp, prolong_to_scipy(p)))
+        with trace.phase(f"L{k} lmax"):
+            if params.smoother == "l1jacobi":
+                # out-of-range taps are stored as exact zeros: the row l1
+                # norm is a plane-wise |·| sum
+                dinv = 1.0 / np.abs(data).sum(axis=0)
+            else:
+                dinv = 1.0 / data[offsets.index(0)]
+            data_f = np.ascontiguousarray(data, np.float32)
+            if n >= (1 << 18) and native.available():
+                def apply_fn(v):
+                    return native.dia_apply(offsets, data_f, v)
+            else:   # small levels: the per-call OpenMP spawn outweighs it
+                def apply_fn(v):
+                    return cr.dia_apply(offsets, data_f, v)
+            lmax = _estimate_lmax_apply(apply_fn, dinv, n, dtype=np.float32)
+        with trace.phase(f"L{k} operator form") as ph:
+            a_lvl = _structured_form(Dia(data=data_f, offsets=tuple(offsets),
+                                         dims=dims), params, device, k)
+            ph.label += f" ({type(a_lvl).__name__})"
         levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
         offsets, data, dims = offs_c, np.asarray(data_c), coarse_dims
         n = int(np.prod(dims))
@@ -729,13 +698,14 @@ def _amg_setup_structured_device(a, dims, params: AMGParams, device,
     host = HostSetup(ops=[fine_host_operator(a) if keep_host else None],
                      states=[], p=[])
     levels = []
-    trace = _SetupTrace()
+    trace = SetupTrace()
     n = int(np.prod(dims))
     while n > params.coarse_size and len(levels) < params.max_levels - 1:
-        means, _ = _diag_stats(data)
-        axes = strong_axes_from_values(offsets, means.cpu().numpy(), dims,
-                                       params.theta)
-        trace.mark(f"L{len(levels)} n={n} strength/axes")
+        k = len(levels)
+        with trace.phase(f"L{k} n={n} strength/axes"):
+            means, _ = _diag_stats(data)
+            axes = strong_axes_from_values(offsets, means.cpu().numpy(),
+                                           dims, params.theta)
         if not any(axes):
             break
         coarse_dims = tuple((d + 1) // 2 if c else d
@@ -744,19 +714,20 @@ def _amg_setup_structured_device(a, dims, params: AMGParams, device,
                         coarsened=axes)
         r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
                          coarsened=axes)
-        offs_c, data_c = cr.comb_rap_device(offsets, data, dims, coarse_dims,
-                                            axes)
-        trace.mark(f"L{len(levels)} RAP", sync=data_c)
-        if params.smoother == "l1jacobi":
-            dinv = 1.0 / data.abs().sum(dim=0)
-        else:
-            dinv = 1.0 / data[offsets.index(0)]
-        cur = Dia(data=data, offsets=tuple(offsets), dims=dims)
-        lmax = estimate_lmax(cur, dinv)
-        trace.mark(f"L{len(levels)} lmax")
-        a_lvl = _structured_form(cur, params, device, len(levels))
-        trace.mark(f"L{len(levels)} operator form "
-                   f"({type(a_lvl).__name__})")
+        with trace.phase(f"L{k} RAP") as ph:
+            offs_c, data_c = cr.comb_rap_device(offsets, data, dims,
+                                                coarse_dims, axes)
+            ph.sync = data_c
+        with trace.phase(f"L{k} lmax"):
+            if params.smoother == "l1jacobi":
+                dinv = 1.0 / data.abs().sum(dim=0)
+            else:
+                dinv = 1.0 / data[offsets.index(0)]
+            cur = Dia(data=data, offsets=tuple(offsets), dims=dims)
+            lmax = estimate_lmax(cur, dinv)
+        with trace.phase(f"L{k} operator form") as ph:
+            a_lvl = _structured_form(cur, params, device, k)
+            ph.label += f" ({type(a_lvl).__name__})"
         levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
         offsets, data, dims = offs_c, data_c, coarse_dims
         n = int(np.prod(dims))

@@ -33,7 +33,8 @@ Every pattern guard raises :class:`PatternChangedError` (the facade then
 runs a fresh setup); values are never written into a pattern they do not
 fit, including a CSR operator whose ``indptr`` alone moved.
 ``OMP_AMG_SETUP_TIMERS=1`` traces the refresh's phases, with the
-reference's labels (:func:`.hierarchy.last_setup_trace`).
+reference's labels (:func:`~.utils.trace.last_setup_trace`); each phase
+is a ``setup.<label>`` span.
 
 Device forms: a refreshed ``Csr`` is ``dataclasses.replace(old,
 vals=new)``: its ``indptr`` and ``indices`` tensors are the cached
@@ -71,6 +72,7 @@ import numpy as np
 import torch
 
 from ..sparse.formats import Csr, Dia, _numpy
+from ..utils.trace import SetupTrace
 from .params import AMGParams
 
 DROPPED_TOL = 1e-7   # dropped-Galerkin guard, relative to max|A_c|
@@ -353,12 +355,12 @@ def amg_refresh(a_new, cache: SetupCache, *, verify_mask: bool = True):
     from ..utils.memtune import tune_malloc
     from . import host_setup as hs
     from .hierarchy import (
-        Hierarchy, _coarse_factor, _estimate_lmax_host, _SetupTrace,
+        Hierarchy, _coarse_factor, _estimate_lmax_host,
         fine_operator, make_level,
     )
 
     tune_malloc()
-    trace = _SetupTrace()
+    trace = SetupTrace()
     if cache.hier is None:
         raise ValueError("cache was not finished by amg_setup")
     params = cache.params
@@ -390,120 +392,128 @@ def amg_refresh(a_new, cache: SetupCache, *, verify_mask: bool = True):
               if a_sp is not None else None)
     a_pat = cache.a0_pat
     for li, c in enumerate(cache.levels):
-        old = old_hier.levels[li]
-        mask, state, cmap, nc = c["mask"], c["state"], c["cmap"], c["nc"]
-        num = c.get("num")
-        l0_dia = li == 0 and host_dia0 is not None
-        if num is None:
-            # cold: planes from the CSR values; the dataflow is frozen below
-            if l0_dia:
-                # the setup computed L0's mask and interpolation on DIA
-                # layout planes (slot = diagonal); CSR-compacted planes put
-                # the entries at other slots and would trip the guards
-                col, val, _ = ell_planes_from_dia(host_dia0, dtype=np.float32)
+        with trace.phase(f"L{li} planes"):
+            old = old_hier.levels[li]
+            mask, state, cmap, nc = c["mask"], c["state"], c["cmap"], c["nc"]
+            num = c.get("num")
+            l0_dia = li == 0 and host_dia0 is not None
+            if num is None:
+                # cold: planes from the CSR values; the dataflow is frozen
+                # below
+                if l0_dia:
+                    # the setup computed L0's mask and interpolation on DIA
+                    # layout planes (slot = diagonal); CSR-compacted planes
+                    # put the entries at other slots and would trip the
+                    # guards
+                    col, val, _ = ell_planes_from_dia(host_dia0,
+                                                      dtype=np.float32)
+                else:
+                    col, val = ell_planes_from_scipy(_csr_of(a_pat, a_data),
+                                                     dtype=np.float32)[:2]
+                if col.shape != mask.shape:
+                    raise PatternChangedError(f"L{li}: ELL width changed")
             else:
-                col, val = ell_planes_from_scipy(_csr_of(a_pat, a_data),
-                                                 dtype=np.float32)[:2]
-            if col.shape != mask.shape:
-                raise PatternChangedError(f"L{li}: ELL width changed")
-        else:
-            if l0_dia:
-                flat = host_dia0.data.ravel()
-                if flat.size != num["dia_size"]:
-                    raise PatternChangedError("L0: DIA shape changed")
-                a_data = native.perm_gather(num["dia_sel"], flat)
-                if len(a_data) and (a_data == 0).any():
-                    raise PatternChangedError(
-                        "L0: a stored DIA entry became exactly zero")
-                if np.count_nonzero(flat) != len(a_data):
-                    raise PatternChangedError("L0: DIA nonzero set changed")
-                col, val, _ = ell_planes_from_dia(host_dia0, dtype=np.float32)
+                if l0_dia:
+                    flat = host_dia0.data.ravel()
+                    if flat.size != num["dia_size"]:
+                        raise PatternChangedError("L0: DIA shape changed")
+                    a_data = native.perm_gather(num["dia_sel"], flat)
+                    if len(a_data) and (a_data == 0).any():
+                        raise PatternChangedError(
+                            "L0: a stored DIA entry became exactly zero")
+                    if np.count_nonzero(flat) != len(a_data):
+                        raise PatternChangedError(
+                            "L0: DIA nonzero set changed")
+                    col, val, _ = ell_planes_from_dia(host_dia0,
+                                                      dtype=np.float32)
+                else:
+                    col = num["col_planes"]
+                    val = np.zeros(col.shape, np.float32)
+                    val.ravel()[num["ell_pos"]] = a_data
+        with trace.phase(f"L{li} strength-verify"):
+            if verify_mask:
+                m2 = hs.strength_mask_host(col, val, params.theta)
+                if not np.array_equal(m2, mask):
+                    raise PatternChangedError(f"L{li}: strength mask changed")
+        with trace.phase(f"L{li} interp"):
+            if params.interp == "standard":
+                p_col, p_val = hs.standard_interpolation_np(
+                    col, val, mask, state, cmap, nc,
+                    max_elements=params.interp_max_elements)
+            elif params.interp == "extpi":
+                p_col, p_val = hs.extpi_interpolation(
+                    col, val, mask, state, cmap, nc,
+                    max_elements=params.interp_max_elements)
             else:
-                col = num["col_planes"]
-                val = np.zeros(col.shape, np.float32)
-                val.ravel()[num["ell_pos"]] = a_data
-        trace.mark(f"L{li} planes")
-        if verify_mask:
-            m2 = hs.strength_mask_host(col, val, params.theta)
-            if not np.array_equal(m2, mask):
-                raise PatternChangedError(f"L{li}: strength mask changed")
-        trace.mark(f"L{li} strength-verify")
-        if params.interp == "standard":
-            p_col, p_val = hs.standard_interpolation_np(
-                col, val, mask, state, cmap, nc,
-                max_elements=params.interp_max_elements)
-        elif params.interp == "extpi":
-            p_col, p_val = hs.extpi_interpolation(
-                col, val, mask, state, cmap, nc,
-                max_elements=params.interp_max_elements)
-        else:
-            p_col, p_val = hs.direct_interpolation_np(col, val, mask,
-                                                      state, cmap, nc)
-        if not np.array_equal(p_col, c["p_col"]):
-            if params.interp != "extpi":
-                raise PatternChangedError(f"L{li}: interpolation pattern "
-                                          "changed")
-            # near-tie truncation flips: recompute just those rows with the
-            # selection pinned to the cached pattern (the contract is
-            # "cached pattern, new values")
-            bad = np.flatnonzero((p_col != c["p_col"]).any(axis=1)
-                                 | ((p_val != 0) != c["p_valid"]).any(
-                                     axis=1))
-            try:
-                pv_rows = hs.extpi_pinned_rows(
-                    col, val, mask, state, cmap, nc, bad, c["p_col"],
-                    c["p_valid"])
-            except ValueError as e:
-                raise PatternChangedError(f"L{li}: {e}") from e
-            p_val = p_val.copy()
-            p_val[bad] = pv_rows
-            p_val[~c["p_valid"]] = 0
-        trace.mark(f"L{li} interp")
-        if num is None:
-            num = _build_level_num(c, a_pat, host_dia0 if li == 0 else None)
-            c["num"] = num
-        p_data = np.ascontiguousarray(p_val.ravel()[num["p_pos"]],
-                                      np.float64)
-        ac_data = _rap_numeric(num, a_data, p_data)
-        trace.mark(f"L{li} RAP")
+                p_col, p_val = hs.direct_interpolation_np(col, val, mask,
+                                                          state, cmap, nc)
+            if not np.array_equal(p_col, c["p_col"]):
+                if params.interp != "extpi":
+                    raise PatternChangedError(f"L{li}: interpolation pattern "
+                                              "changed")
+                # near-tie truncation flips: recompute just those rows with
+                # the selection pinned to the cached pattern (the contract
+                # is "cached pattern, new values")
+                bad = np.flatnonzero((p_col != c["p_col"]).any(axis=1)
+                                     | ((p_val != 0) != c["p_valid"]).any(
+                                         axis=1))
+                try:
+                    pv_rows = hs.extpi_pinned_rows(
+                        col, val, mask, state, cmap, nc, bad, c["p_col"],
+                        c["p_valid"])
+                except ValueError as e:
+                    raise PatternChangedError(f"L{li}: {e}") from e
+                p_val = p_val.copy()
+                p_val[bad] = pv_rows
+                p_val[~c["p_valid"]] = 0
+        with trace.phase(f"L{li} RAP"):
+            if num is None:
+                num = _build_level_num(c, a_pat,
+                                       host_dia0 if li == 0 else None)
+                c["num"] = num
+            p_data = np.ascontiguousarray(p_val.ravel()[num["p_pos"]],
+                                          np.float64)
+            ac_data = _rap_numeric(num, a_data, p_data)
 
-        a_csr = _csr_of(num["a_pat"], a_data)
-        if params.smoother == "l1jacobi":
-            dinv = 1.0 / np.asarray(np.abs(a_csr).sum(axis=1)).ravel()
-        elif num["diag_pos"] is not None:
-            dinv = 1.0 / a_data[num["diag_pos"]]
-        else:
-            dinv = 1.0 / a_csr.diagonal()
-        lmax = _estimate_lmax_host(a_csr, dinv)
-        trace.mark(f"L{li} lmax/dinv")
+        with trace.phase(f"L{li} lmax/dinv"):
+            a_csr = _csr_of(num["a_pat"], a_data)
+            if params.smoother == "l1jacobi":
+                dinv = 1.0 / np.asarray(np.abs(a_csr).sum(axis=1)).ravel()
+            elif num["diag_pos"] is not None:
+                dinv = 1.0 / a_data[num["diag_pos"]]
+            else:
+                dinv = 1.0 / a_csr.diagonal()
+            lmax = _estimate_lmax_host(a_csr, dinv)
 
-        if c["a_kind"] == "Dia":
-            if not l0_dia:
-                raise PatternChangedError(f"L{li}: cached Dia operator "
-                                          "without Dia input")
-            a_lvl = fine_operator(host_dia0, device)
-        else:
-            a_lvl = _refill(old.a, a_data, f"L{li} A")
-        p_lvl = _refill(old.p, p_data, f"L{li} P")
-        if "pt_perm_dev" not in num:
-            num["pt_perm_dev"] = torch.from_numpy(
-                num["pt_perm"].astype(np.int64)).to(device)
-        if old.r.nnz != len(num["pt_perm"]) or \
-                old.r.vals.dtype != p_lvl.vals.dtype:
-            raise PatternChangedError(f"L{li}: R no longer Pᵀ's pattern")
-        r_lvl = dataclasses.replace(
-            old.r, vals=p_lvl.vals.index_select(0, num["pt_perm_dev"]))
-        levels.append(make_level(a_lvl, dinv, lmax, p_lvl, r_lvl, params,
-                                 device))
-        trace.mark(f"L{li} streams")
+        with trace.phase(f"L{li} streams"):
+            if c["a_kind"] == "Dia":
+                if not l0_dia:
+                    raise PatternChangedError(f"L{li}: cached Dia operator "
+                                              "without Dia input")
+                a_lvl = fine_operator(host_dia0, device)
+            else:
+                a_lvl = _refill(old.a, a_data, f"L{li} A")
+            p_lvl = _refill(old.p, p_data, f"L{li} P")
+            if "pt_perm_dev" not in num:
+                num["pt_perm_dev"] = torch.from_numpy(
+                    num["pt_perm"].astype(np.int64)).to(device)
+            if old.r.nnz != len(num["pt_perm"]) or \
+                    old.r.vals.dtype != p_lvl.vals.dtype:
+                raise PatternChangedError(f"L{li}: R no longer Pᵀ's pattern")
+            r_lvl = dataclasses.replace(
+                old.r, vals=p_lvl.vals.index_select(0, num["pt_perm_dev"]))
+            levels.append(make_level(a_lvl, dinv, lmax, p_lvl, r_lvl, params,
+                                     device))
         a_data, a_pat = ac_data, num["ac_pat"]
 
-    trace.mark("coarse planes")
-    dense = np.asarray(_csr_of(a_pat, a_data).toarray(), np.float64)
-    fac = _coarse_factor(dense, params)
-    trace.mark("coarse factor")
-    coarse_chol = torch.from_numpy(fac.astype(np.float32)).to(device)
-    trace.mark("pack+upload", sync=coarse_chol)
+    with trace.phase("coarse planes"):
+        pass    # the loop made them (the reference's phase)
+    with trace.phase("coarse factor"):
+        dense = np.asarray(_csr_of(a_pat, a_data).toarray(), np.float64)
+        fac = _coarse_factor(dense, params)
+    with trace.phase("pack+upload") as ph:
+        coarse_chol = torch.from_numpy(fac.astype(np.float32)).to(device)
+        ph.sync = coarse_chol
     hier = Hierarchy(levels=tuple(levels), coarse_chol=coarse_chol,
                      params=params)
     cache.hier = hier

@@ -53,6 +53,10 @@ On CUDA the inner PCG runs as captured blocks of iterations (CUDA graphs
 cached on the hierarchy; ``solve(..., graph=False)`` runs the per-iteration
 loop instead); a refresh drops the graphs with the hierarchy they read.
 
+Under ``torch.profiler`` each public call is a span (``amg.solve``,
+``amg.refresh``, ``amg.precondition``; the constructor's hierarchy build
+``amg.setup``), the parent of the loops' spans (:mod:`.utils.trace`).
+
 The device defaults to ``"cuda"``; without CUDA that raises, and nothing
 moves to the CPU on its own: a CPU run passes ``device="cpu"`` (with a mesh,
 ``ShardMesh(d, "cpu")`` and ``device="cpu"``).
@@ -76,6 +80,7 @@ from .solvers.graph import drop_graphs
 from .solvers.ir import solve_ir, solve_ir_device
 from .sparse.formats import Dia
 from .utils.device import resolve_device
+from .utils.trace import span, traced
 
 
 class AMGSolver:
@@ -129,8 +134,9 @@ class AMGSolver:
                              "setup; it does not combine with grid=")
         check_supported(params)
         if mesh is not None:
-            self._init_dist(a, params, device, grid, transport,
-                            agg_rows_per_dev, refreshable)
+            with span("amg.setup"):
+                self._init_dist(a, params, device, grid, transport,
+                                agg_rows_per_dev, refreshable)
             return
         self.device = resolve_device(device)
         self.a = a
@@ -139,9 +145,10 @@ class AMGSolver:
         # refreshable: record the symbolic setup, so that refresh(a_new)
         # refills values only (amg/refresh.py; the classical PMIS setup)
         self._cache = SetupCache() if refreshable else None
-        self.hierarchy: Hierarchy = amg_setup(a, params, device=self.device,
-                                              grid=grid, cache=self._cache,
-                                              flavor=flavor)
+        with span("amg.setup"):
+            self.hierarchy: Hierarchy = amg_setup(
+                a, params, device=self.device, grid=grid, cache=self._cache,
+                flavor=flavor)
         self._a_host = None
         self._a_f64 = None
 
@@ -253,6 +260,7 @@ class AMGSolver:
                                 for lv in self.hierarchy.levels]}
         return hierarchy_stats(self.hierarchy)
 
+    @traced("amg.solve")
     def solve(self, b, tol: float = 1e-8, maxiter: int = 500,
               certify: bool = True, residual: str = "auto",
               device_result: bool = False, variant: str = "standard",
@@ -365,6 +373,7 @@ class AMGSolver:
                           "certified_f64": False, "distributed": True}
         return unpad_vector(res.x, n)
 
+    @traced("amg.refresh")
     def refresh(self, a_new):
         """Value-only re-setup: the same sparsity, new operator values.
 
@@ -426,6 +435,7 @@ class AMGSolver:
         self._dist = None
         self._dist_vcycle = None
 
+    @traced("amg.precondition")
     def precondition(self, r: torch.Tensor) -> torch.Tensor:
         """Apply one V-cycle: z = M⁻¹ r (for external Krylov loops)."""
         if self.mesh is not None:

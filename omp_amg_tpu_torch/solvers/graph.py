@@ -47,6 +47,11 @@ included. The vector or scalar path of ``dia_spmv``, ``remote_halo`` and
 ``panel_spmm`` is chosen on the host from ``data_ptr()`` alignment and is
 frozen into the graph at capture; ``path_changed`` says whether the
 captured launches took another path than the eager warm-up's.
+
+Under ``torch.profiler`` a run's phases are spans (:mod:`..utils.trace`):
+``graph.capture``, ``graph.start``, ``graph.block`` (a replay: the
+interval ``enqueue_s`` times; on the eager loops one block or step),
+``graph.flag`` and ``graph.finish``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import torch
 from ..ops import (
     const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm, remote_halo,
 )
+from ..utils.trace import span
 
 # K, the PCG iterations per captured block. The certified 128³ solves run
 # 8 + 3 (PMIS) and 10 + 4 (structured) inner iterations in 2 outer passes.
@@ -182,14 +188,21 @@ def _eager(program: Program, b, tol: float, x0, k_block, stats=None):
     """The eager loops: ``k_block`` masked steps per read of ``active``, or
     (``k_block=None``) one unmasked step per read. ``stats``: the block
     loop's solves, blocks and frozen iterations are added there."""
-    st = program.start(b, torch.full((), tol, dtype=torch.float32,
-                                     device=_device(b)), x0)
+    with span("graph.start"):
+        st = program.start(b, torch.full((), tol, dtype=torch.float32,
+                                         device=_device(b)), x0)
     blocks = 0
-    while bool(st["active"]):
-        st = (program.step(st, False) if k_block is None
-              else _block(program, st, k_block))
+    while True:
+        with span("graph.flag"):
+            active = bool(st["active"])
+        if not active:
+            break
+        with span("graph.block"):
+            st = (program.step(st, False) if k_block is None
+                  else _block(program, st, k_block))
         blocks += 1
-    res = program.finish(st)
+    with span("graph.finish"):
+        res = program.finish(st)
     if stats is not None:
         stats["solves"] += 1
         stats["blocks"] += blocks
@@ -258,29 +271,35 @@ class Captured:
         }
 
     def run(self, b, tol: float, x0=None):
-        for d, s in zip(_leaves(self.b), _leaves(b)):
-            d.copy_(s, non_blocking=True)
-        if x0 is not None:
-            for d, s in zip(_leaves(self.x0), _leaves(x0)):
+        with span("graph.start"):
+            for d, s in zip(_leaves(self.b), _leaves(b)):
                 d.copy_(s, non_blocking=True)
-        self.tol.fill_(tol)
-        self.start_graph.replay()
+            if x0 is not None:
+                for d, s in zip(_leaves(self.x0), _leaves(x0)):
+                    d.copy_(s, non_blocking=True)
+            self.tol.fill_(tol)
+            self.start_graph.replay()
         _add(self.start_inc)
         blocks = 0
         while True:
-            t0 = time.perf_counter()
-            self.block_graph.replay()
-            self.stats["enqueue_s"] += time.perf_counter() - t0
+            with span("graph.block"):
+                t0 = time.perf_counter()
+                self.block_graph.replay()
+                self.stats["enqueue_s"] += time.perf_counter() - t0
             _add(self.block_inc)
             blocks += 1
-            if not bool(self.state["active"]):
+            with span("graph.flag"):
+                active = bool(self.state["active"])
+            if not active:
                 break
-        res = self.finish(self.state)
+        with span("graph.finish"):
+            res = self.finish(self.state)
+            # the state buffers are overwritten by the next solve
+            res = res._replace(x=_clone(res.x))
         self.stats["solves"] += 1
         self.stats["blocks"] += blocks
         self.stats["frozen"] += blocks * self.k_block - res.iters
-        # the state buffers are overwritten by the next solve
-        return res._replace(x=_clone(res.x))
+        return res
 
 
 class EagerBlocks:
@@ -322,7 +341,8 @@ def run(program: Program, b, tol: float, x0=None, *, graph: bool = True,
                 BLOCK, NOT_CAPTURED["mesh" if not capture else "cpu"])
         return runner.run(program, b, tol, x0)
     if runner is None:
-        runner = cache[key] = Captured(program, b, x0, BLOCK, keep)
+        with span("graph.capture"):
+            runner = cache[key] = Captured(program, b, x0, BLOCK, keep)
     return runner.run(b, tol, x0)
 
 

@@ -23,6 +23,7 @@ import torch
 
 from ..amg.hierarchy import Hierarchy, fine_operator
 from ..sparse.formats import Dia
+from ..utils.trace import span
 from .cg import amg_pcg
 
 
@@ -53,24 +54,26 @@ def solve_ir(a_apply, b, a_dev, hier: Hierarchy, tol: float = 1e-8,
     x = np.zeros_like(b)
     inner_iters = []
     histories = []
-    for outer in range(max_outer):
-        r = b - a_apply(x)
-        rel = float(np.linalg.norm(r) / bnorm)
-        if rel <= tol:
-            return IRResult(x, outer, inner_iters, rel, histories)
-        scale = np.linalg.norm(r)
+    for outer in range(max_outer + 1):
+        with span("ir.residual"):
+            r = b - a_apply(x)
+            scale = np.linalg.norm(r)
+            rel = float(scale / bnorm)
+            if rel <= tol or outer == max_outer:
+                break
+            rhs = torch.from_numpy((r / scale).astype(np.float32)).to(
+                hier.device)
         # adaptive inner tolerance: the defect only needs a relative
         # reduction of tol/rel (×0.3 safety)
         tau = max(inner_tol, 0.3 * tol / rel)
-        rhs = torch.from_numpy((r / scale).astype(np.float32)).to(hier.device)
         res = amg_pcg(a_dev, rhs, hier, tol=tau, maxiter=maxiter,
                       variant=variant, graph=graph)
         inner_iters.append(res.iters)
         histories.append(res.history)
-        x = x + scale * res.x.cpu().numpy().astype(np.float64)
-    r = b - a_apply(x)
-    rel = float(np.linalg.norm(r) / bnorm)
-    return IRResult(x, max_outer, inner_iters, rel, histories)
+        with span("ir.update"):
+            x = x + scale * res.x.cpu().numpy().astype(np.float64)
+    with span("ir.result"):   # x is on the host already
+        return IRResult(x, len(inner_iters), inner_iters, rel, histories)
 
 
 def dia_apply_f64(offsets, data: torch.Tensor, x: torch.Tensor,
@@ -126,16 +129,20 @@ def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
     for outer in range(max_outer + 1):
         if bnorm == 0:
             break
-        r = b - dia_apply_f64(offsets, data, x)
-        rnorm = float(torch.linalg.vector_norm(r))
-        rel = rnorm / bnorm
-        if rel <= tol or outer == max_outer:
-            break
+        with span("ir.residual"):
+            r = b - dia_apply_f64(offsets, data, x)
+            rnorm = float(torch.linalg.vector_norm(r))
+            rel = rnorm / bnorm
+            if rel <= tol or outer == max_outer:
+                break
+            defect = (r / rnorm).float()
         tau = max(inner_tol, 0.3 * tol / rel)
-        res = amg_pcg(a_dev, (r / rnorm).float(), hier, tol=tau,
+        res = amg_pcg(a_dev, defect, hier, tol=tau,
                       maxiter=maxiter, variant=variant, graph=graph)
         inner_iters.append(res.iters)
         histories.append(res.history)
-        x = x + rnorm * res.x.double()
-    return IRResult(x.cpu().numpy() if to_host else x, len(inner_iters),
-                    inner_iters, rel, histories)
+        with span("ir.update"):
+            x = x + rnorm * res.x.double()
+    with span("ir.result"):
+        x = x.cpu().numpy() if to_host else x
+    return IRResult(x, len(inner_iters), inner_iters, rel, histories)

@@ -949,6 +949,63 @@ def test_device_flavor_setup_matches_cpu(path):
     assert iters["cuda"] == iters["cpu"]
 
 
+def test_captured_solve_kernels_fall_under_start_or_block(hier):
+    """Under ``torch.profiler`` the kernels of a captured solve's replays
+    are put down to the program's ``graph.start`` or ``graph.block`` span:
+    through the host event each links to, else (a profiler whose events
+    carry no link) through the ``cudaGraphLaunch`` that launched it, the
+    same correlation id."""
+    import bisect
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a = hier.levels[0].a
+    b = _vec(np.random.default_rng(5), a.n_rows)
+    amg.amg_pcg(a, b, hier, tol=1e-6)          # captures
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = amg.amg_pcg(a, b, hier, tol=1e-6)
+        torch.cuda.synchronize()
+    assert res.iters > 0
+    host, device = [], []
+    for e in prof.events():
+        (host if e.device_type == DeviceType.CPU else device).append(e)
+    spans = sorted(((e.time_range.start, -e.time_range.end, e.name)
+                    for e in host if e.name.startswith("graph.")))
+    starts = [s for s, _, _ in spans]
+
+    def link(e):
+        return getattr(e, "linked_correlation_id", 0) or 0
+
+    linked = {e.id: e.time_range.start for e in host
+              if not link(e) and not e.name.startswith("cu")}
+    launch = {e.id: e for e in host if link(e) or e.name.startswith("cu")}
+
+    def innermost(t):
+        for j in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+            s, neg_end, name = spans[j]
+            if -neg_end >= t:
+                return name
+        return None
+
+    where = collections.Counter()
+    for k in device:
+        if getattr(k, "is_user_annotation", False) or \
+                k.name.startswith("graph."):
+            continue
+        call = launch.get(k.id)
+        if call is None or call.name != "cudaGraphLaunch":
+            continue                    # not a replay's kernel
+        at = linked.get(link(k)) if link(k) else None
+        at = call.time_range.start if at is None else at
+        where[innermost(at)] += 1
+    assert where["graph.start"] > 0 and where["graph.block"] > 0
+    assert set(where) == {"graph.start", "graph.block"}
+
+
 def test_hash01_on_the_card_bitwise_cpu():
     _need_cuda()
     from omp_amg_tpu_torch.amg.pmis import hash01
