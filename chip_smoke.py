@@ -40,6 +40,9 @@ Phases (each raises on failure, so the exit code is non-zero):
 6. ``const_stencil`` kernel checks: all five modes on the ``ConstDia`` of
    ``poisson3d_7pt(256)``, ``poisson3d_7pt(n)`` and ``poisson3d_27pt(n)``;
    spmv of each at several z-chunk lengths (``zsweep`` lines);
+6a. ``grid_transfer`` kernel checks: restrict, prolong and prolong-add at
+   256³ → 128³ in f32 and f64 against the slice-form twin on the same CUDA
+   tensors, bit for bit, each timed beside its bound and the twin;
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
    grid=(n,)*3, device="cuda").solve(b, tol=1e-8)``; then ``dia_spmv``
    checks on its Galerkin levels;
@@ -192,6 +195,8 @@ import numpy as np
 DIA_BOUND = 1e-6    # ≤ 27 f32 terms summed: only the order may differ
 CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
 CONST_BOUND = 0.0   # same products and order as the twin: bitwise
+TRANSFER_BOUND = 0.0  # grid_transfer: the twin's nesting and rounding
+TRANSFER_N = 256    # grid_transfer checks: the structured cell's level 0
 PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
 HALO_BOUND = 0.0    # remote_halo is a copy: exact
 SPIN_CYCLES = 2_000_000  # cuda_ms' spin before each timed call, ~1 ms
@@ -675,6 +680,42 @@ def const_checks(tag, a, rng, flush):
             for mode, (kern, pl, nbytes) in cases.items()]
 
 
+def grid_transfer_checks(rng, flush):
+    """The grid-transfer kernel's three modes at ``TRANSFER_N``³ →
+    (``TRANSFER_N``/2)³, all axes coarsened, in f32 and f64, against the
+    slice-form twin on the same CUDA tensors (bitwise); bytes count the
+    input vectors read once and the output written once."""
+    import torch
+
+    from omp_amg_tpu_torch.amg.structured import (
+        GridProlong, GridRestrict, apply_prolong, apply_restrict,
+    )
+    from omp_amg_tpu_torch.ops import grid_transfer as gt
+
+    kw = dict(fine_shape=(TRANSFER_N,) * 3,
+              coarse_shape=(TRANSFER_N // 2,) * 3, coarsened=(True,) * 3)
+    p, r = GridProlong(**kw), GridRestrict(**kw)
+    nf, nc = p.n_rows, p.n_cols
+    rows = []
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        size = torch.finfo(dtype).bits // 8
+        xf, x = (_vec(rng, nf, "cuda").to(dtype) for _ in range(2))
+        xc = _vec(rng, nc, "cuda").to(dtype)
+        cases = {
+            "restrict": (lambda: gt.restrict(r, xf),
+                         lambda: apply_restrict(r, xf), size * (nf + nc)),
+            "prolong": (lambda: gt.prolong(p, xc),
+                        lambda: apply_prolong(p, xc), size * (nc + nf)),
+            "prolong-add": (lambda: gt.correct(p, xc, x),
+                            lambda: x + apply_prolong(p, xc),
+                            size * (nc + 2 * nf)),
+        }
+        rows += [compare(f"grid_transfer:{TRANSFER_N}^3:{mode}:{tag}", kern,
+                         pl, TRANSFER_BOUND, nbytes, flush)
+                 for mode, (kern, pl, nbytes) in cases.items()]
+    return rows
+
+
 def reset_counters(counters):
     for mod in counters.values():
         mod.launches = 0
@@ -1064,7 +1105,8 @@ def sharded_path(n, counters, flush, rng):
         vcycle=vcycle, mesh=amg.ShardMesh(SHARDS, "cuda"),
         transport="remote")
     print(f"sharded d={SHARDS} stats={solver.stats()}", flush=True)
-    expect_launches("sharded", launches, ("dia_spmv", "remote_halo"))
+    expect_launches("sharded", launches,
+                    ("dia_spmv", "remote_halo", "grid_transfer"))
     info = run["info"]
     runs = {"remote": run}
     for label, mesh, transport in (
@@ -1261,7 +1303,7 @@ def cheby_configs(counters, rng, flush):
     paths, rows = {}, {}
     for pipeline, params, g, used in (
             ("structured", amg.AMGParams(smoother="chebyshev"), grid,
-             ("const_stencil", "dia_spmv")),
+             ("const_stencil", "dia_spmv", "grid_transfer")),
             ("pmis", amg.AMGParams(coarsening="pmis", smoother="chebyshev"),
              None, ("dia_spmv", "csr_spmv"))):
         label = f"cheby {pipeline} 27pt n={CHEBY_N}^3"
@@ -1465,7 +1507,8 @@ def sharded_variants(n, counters):
             check_certified(label, run["info"], run["scipy_rel"])
             infos[d] = run["info"]
             if d == SHARDS:
-                expect_launches(label, launches, ("dia_spmv", "remote_halo"))
+                expect_launches(label, launches,
+                                ("dia_spmv", "remote_halo", "grid_transfer"))
                 paths[f"sharded_{name}"] = launches
             del solver
         four, one = infos[SHARDS], infos[1]
@@ -1757,7 +1800,7 @@ def cli_paths(counters):
     with tempfile.TemporaryDirectory() as tmp:
         _, paths["cli_structured"] = run(
             f"3d7pt n={n}", ["--problem", "3d7pt", "--n", str(n)],
-            ("const_stencil", "dia_spmv"))
+            ("const_stencil", "dia_spmv", "grid_transfer"))
 
         # PMIS, saved; the saved hierarchy captured for the bitwise check
         h_path = os.path.join(tmp, "h.npz")
@@ -2586,7 +2629,7 @@ def device_setups(n, counters, s3_setup_s):
     paths["structured_device"] = launches["device"]
     paths["structured_host"] = launches["host"]
     expect_launches("structured device", launches["device"],
-                    ("const_stencil", "dia_spmv"))
+                    ("const_stencil", "dia_spmv", "grid_transfer"))
     if runs["device"]["setup_launches"]["dia_spmv"] == 0:
         raise AssertionError("structured device setup: λmax did not run "
                              "dia_spmv")
@@ -2656,7 +2699,8 @@ def device_setups(n, counters, s3_setup_s):
     solver, paths["aniso_device"], run = drive(
         "aniso9pt_256_eps1e-3 flavor=device", op, amg.AMGParams(), grid,
         counters, flavor="device")
-    expect_launches("aniso device", paths["aniso_device"], ("dia_spmv",))
+    expect_launches("aniso device", paths["aniso_device"],
+                    ("dia_spmv", "grid_transfer"))
     axes0 = solver.hierarchy.levels[0].p.coarsened
     info = run["info"]
     print(f"aniso9pt_256_eps1e-3 device: L0 axes={axes0} inner="
@@ -2701,7 +2745,7 @@ def device_setups(n, counters, s3_setup_s):
     if any(max(d) > 4 for d in built):
         raise AssertionError(f"cli device-only: host planes built {built}")
     expect_launches("cli device-only", paths["cli_device_only"],
-                    ("const_stencil", "dia_spmv"))
+                    ("const_stencil", "dia_spmv", "grid_transfer"))
 
     # 15e: GPU/CPU parity of both device flavors
     m = DEVICE_PARITY_N
@@ -2740,8 +2784,8 @@ def rank_main(args) -> int:
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops import (
-        const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
-        remote_halo,
+        const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
+        panel_spmm, remote_halo,
     )
     from omp_amg_tpu_torch.parallel.multihost import (
         global_mesh, maybe_initialize,
@@ -2756,7 +2800,8 @@ def rank_main(args) -> int:
     mesh = global_mesh(PROC_LOCAL)
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
-                "extract_lanes": extract_lanes, "remote_halo": remote_halo}
+                "extract_lanes": extract_lanes, "remote_halo": remote_halo,
+                "grid_transfer": grid_transfer}
     n = args.n
     a = amg.poisson3d_7pt(n)
     b = amg.default_rhs(a, seed=SEED)
@@ -2980,7 +3025,7 @@ def process_mesh_paths(n, pm_run, sh_run):
                                              "not report the eager loop")
                 check_certified(label, dict(rel_residual=r0["rel"]), rel)
                 used = ({"csr_spmv", "remote_halo"} if kind == "pmis"
-                        else {"dia_spmv", "remote_halo"})
+                        else {"dia_spmv", "remote_halo", "grid_transfer"})
                 if t == "ppermute":
                     used -= {"remote_halo"}
                 expect_launches(label, launches, used)
@@ -3095,14 +3140,15 @@ def main() -> int:
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch import _build, native
     from omp_amg_tpu_torch.ops import (
-        const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
-        remote_halo,
+        const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
+        panel_spmm, remote_halo,
     )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
-                "extract_lanes": extract_lanes, "remote_halo": remote_halo}
+                "extract_lanes": extract_lanes, "remote_halo": remote_halo,
+                "grid_transfer": grid_transfer}
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -3193,6 +3239,9 @@ def main() -> int:
         rows["const_stencil"] += const_checks(tag, op, rng, flush)
         del op
 
+    # phase 6a: grid_transfer kernel checks
+    rows["grid_transfer"] = grid_transfer_checks(rng, flush)
+
     def banded_checks(tag, lv):
         dts = [torch.float32]
         if bf16_lossless(lv.a.data.float().cpu().numpy()):
@@ -3203,7 +3252,7 @@ def main() -> int:
     solver, s3_launches, s3_run = drive(f"structured n={args.n}^3", a,
                                    amg.AMGParams(), (args.n,) * 3, counters)
     expect_launches("structured 3D", s3_launches,
-                    ("const_stencil", "dia_spmv"))
+                    ("const_stencil", "dia_spmv", "grid_transfer"))
     for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
         banded_checks(f"S3-L{l}-A", lv)
     del solver
@@ -3213,7 +3262,8 @@ def main() -> int:
     a2 = amg.poisson2d_5pt(N2D)
     solver, s2_launches, s2_run = drive(f"structured 2D n={N2D}^2", a2,
                                    amg.AMGParams(), (N2D, N2D), counters)
-    expect_launches("structured 2D", s2_launches, ("dia_spmv",))
+    expect_launches("structured 2D", s2_launches,
+                    ("dia_spmv", "grid_transfer"))
     if s2_run["scalar"]["dia_spmv"] in (0, s2_launches["dia_spmv"]):
         raise AssertionError("structured 2D: dia_spmv did not launch both "
                              f"paths ({s2_run['scalar']['dia_spmv']} scalar "
@@ -3311,10 +3361,11 @@ def main() -> int:
           f"plain_ms, "
           f"library_ms and bound time const_stencil:7pt{CONST_N}:spmv, "
           f"dia_spmv:L0-A:bf16:spmv, csr_spmv:L1-A:f32:spmv, "
-          f"panel_spmm:L0-A·PV, extract_lanes:L0 and "
+          f"panel_spmm:L0-A·PV, extract_lanes:L0, "
           f"remote_halo:L0:d={SHARDS} (the windows; cross_process: the "
-          f"window of phase 16b's L0 on each rank, through CUDA IPC) with a "
-          f"cold L2; "
+          f"window of phase 16b's L0 on each rank, through CUDA IPC) and "
+          f"grid_transfer:{TRANSFER_N}^3:restrict:f32 (modes: all three "
+          f"f32 rows) with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -3344,6 +3395,12 @@ def main() -> int:
                  "name", "max_abs_err", "gathered_err", "ms", "plain_ms",
                  "bound_ms", "exchange_remote_us", "exchange_ppermute_us")}
                  for r in ipc_rows]),
+        dict(summary("grid_transfer", "omp_amg_tpu_torch/csrc/grid_transfer.cu",
+                     "none (the reference's transfers are not Pallas)",
+                     f"grid_transfer:{TRANSFER_N}^3:restrict:f32"),
+             modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us")}
+                    for r in rows["grid_transfer"]
+                    if r["name"].endswith(":f32")]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -139,6 +139,12 @@ def cuda_kernels() -> ctypes.CDLL:
         # n_rows, C, q, indptr, indices, vals, x, u, stream
         lib.panel_spmm_launch.argtypes = [i64, i32, i32] + [p] * 6
         lib.panel_spmm_launch.restype = i32
+        # kind, f64, fz, fy, fx, cz, cy, cx, mask, lanes, rows, zchunk,
+        # tiles_x, tiles_y, blocks, in, x, out, stream
+        lib.grid_transfer_launch.argtypes = ([i32, i32] + [i64] * 6
+                                             + [i32, i32, i32] + [i64] * 4
+                                             + [p] * 4)
+        lib.grid_transfer_launch.restype = i32
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32

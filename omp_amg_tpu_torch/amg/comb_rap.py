@@ -553,9 +553,8 @@ def _device_comb_fn(offsets, dims, coarse_dims, coarsened):
     cross-check engine: the chain R·A·P applied to each of the
     3^d comb vectors, then each coarse tap selected from the responses.
     Assumes only radius 1 (reads the operator 3^d times)."""
-    from .structured import (
-        GridProlong, GridRestrict, apply_prolong, apply_restrict,
-    )
+    from ..ops.grid_transfer import prolong, restrict
+    from .structured import GridProlong, GridRestrict
 
     d = len(dims)
     nc = int(np.prod(coarse_dims))
@@ -572,8 +571,8 @@ def _device_comb_fn(offsets, dims, coarse_dims, coarsened):
             m = torch.ones(nc, dtype=torch.bool, device=data.device)
             for ax in range(d):
                 m &= coords[ax] % 3 == t[ax]
-            ws.append(apply_restrict(r, dia_apply(
-                offsets, data, apply_prolong(p, m.to(data.dtype)))))
+            ws.append(restrict(r, dia_apply(
+                offsets, data, prolong(p, m.to(data.dtype)))))
         ws = torch.stack(ws)                        # (3^d, nc)
         rows = []
         for delta in deltas:
@@ -597,9 +596,8 @@ def comb_rap_device(offsets, data: torch.Tensor, dims, coarse_dims,
     All-zero taps are dropped (one O(ndiag) read), then a random probe
     (x from ``np.random.default_rng(0)``) checks ‖A_c x − R A P x‖ ≤
     2e-4·‖R A P x‖ (max norms) and raises ValueError otherwise."""
-    from .structured import (
-        GridProlong, GridRestrict, apply_prolong, apply_restrict,
-    )
+    from ..ops.grid_transfer import prolong, restrict
+    from .structured import GridProlong, GridRestrict
 
     dims, coarse_dims = tuple(dims), tuple(coarse_dims)
     coarsened = tuple(bool(c) for c in coarsened)
@@ -616,9 +614,9 @@ def comb_rap_device(offsets, data: torch.Tensor, dims, coarse_dims,
     nc = int(np.prod(coarse_dims))
     x = torch.from_numpy(rng.standard_normal(nc)).to(data.device, data.dtype)
     y1 = dia_apply(offs_c, data_c, x)
-    y2 = apply_restrict(
+    y2 = restrict(
         GridRestrict(dims, coarse_dims, coarsened),
-        dia_apply(offsets, data, apply_prolong(
+        dia_apply(offsets, data, prolong(
             GridProlong(dims, coarse_dims, coarsened), x)))
     err = float((y1 - y2).abs().max())
     scale = float(y2.abs().max()) + 1e-30

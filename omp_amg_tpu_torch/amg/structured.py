@@ -5,12 +5,17 @@ regular grids the hierarchy stays banded at every level: each strong axis is
 coarsened by 2 (semicoarsening), with tensor-product linear interpolation
 and exact Galerkin RAP (:mod:`.comb_rap`).
 
-The transfers are the reference's slice forms on torch tensors, on every
-device and for any number of axes: constant weights (1 and ½, exact in
-f32), no gathers, bitwise the reference's CPU path. The reference computes
-them outside any Pallas kernel (on the TPU as per-axis MXU matmuls, a
-workaround for slow stride-2 slices there), so plain torch ops carry them
-here.
+The transfers here are the reference's slice forms on torch tensors, for
+any number of axes: constant weights (1 and ½, exact in f32), no gathers,
+bitwise the reference's CPU path. The reference computes them outside any
+Pallas kernel (on the TPU as per-axis MXU matmuls, a workaround for slow
+stride-2 slices there). In the port they are the plain twin of the
+grid-transfer kernel: ``ops/spmv.py`` sends CUDA tensors to
+``ops/grid_transfer.py`` (one launch per transfer over every coarsened
+axis, bit for bit these forms), and only CPU tensors run
+:func:`apply_prolong` and :func:`apply_restrict` on that path. The z-slab
+path (``parallel/slab.py``) still runs :func:`_prolong_axis` and
+:func:`_restrict_axis` on its shards, on every device.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 ``omp_amg_tpu/amg/vcycle.py``).
 
 Per level: pre-smooth from a zero guess, residual (fused kernel mode),
-restrict, visit the coarse level, x + P·xc (the CSR kernel's correct mode,
-or a plain add after the grid prolongation), post-smooth; a dense coarse
+restrict, visit the coarse level, x + P·xc (the correct mode of the CSR
+kernel or of the grid-transfer kernel), post-smooth; a dense coarse
 solve at the bottom (Cholesky, or one product with the stored inverse).
 ``params.cycle`` shapes the coarse visits: "v" one, "w" two (the second on
 the first's residual), "f" an F-recursion then a V-recursion. Zero initial
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import const_stencil, csr_spmv
+from ..ops import const_stencil, csr_spmv, grid_transfer
 from ..ops.spmv import residual, spmv
 from ..sparse.formats import ConstDia, Csr
 from .hierarchy import Hierarchy, Level
@@ -103,7 +103,7 @@ def _descend(hier, l: int, bl: torch.Tensor, cyc: str) -> torch.Tensor:
     if isinstance(lv.p, Csr):
         x = csr_spmv.correct(lv.p, xc, x)
     else:
-        x = x + spmv(lv.p, xc)
+        x = grid_transfer.correct(lv.p, xc, x)
     return _smooth(lv, params, x, bl, params.nu_post)
 
 

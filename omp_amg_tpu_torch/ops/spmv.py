@@ -3,8 +3,11 @@
 Counterpart of ``omp_amg_tpu/ops/spmv.py`` (``spmv``, ``residual``): a
 ``ConstDia`` goes to the matrix-free stencil kernel (:mod:`.const_stencil`),
 a banded ``Dia`` to the DIA kernel (:mod:`.dia_spmv`), a ``Csr`` to the CSR
-kernel (:mod:`.csr_spmv`), and the structured grid transfers to their slice
-forms (:mod:`..amg.structured`). The fused residual and Jacobi epilogues are
+kernel (:mod:`.csr_spmv`), and the structured grid transfers
+(``GridProlong``, ``GridRestrict``) to the grid-transfer kernel
+(:mod:`.grid_transfer`) on CUDA tensors; the per-axis slice forms of
+:mod:`..amg.structured` are that kernel's plain twin, which CPU tensors
+run. The fused residual and Jacobi epilogues are
 dispatched the same way; on a ``ConstDia`` the Jacobi scale ``s`` is one
 float. ``spmv_csr`` and ``spmv_dia`` are the reference's public
 per-format products: the CSR and the DIA kernel on CUDA tensors, their
@@ -15,11 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from ..amg.structured import (
-    GridProlong, GridRestrict, apply_prolong, apply_restrict,
-)
+from ..amg.structured import GridProlong, GridRestrict
 from ..sparse.formats import ConstDia, Csr, Dia
-from . import const_stencil, csr_spmv, dia_spmv
+from . import const_stencil, csr_spmv, dia_spmv, grid_transfer
 
 
 def _kernel_module(a):
@@ -35,9 +36,9 @@ def _kernel_module(a):
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
     """y = A·x."""
     if isinstance(a, GridProlong):
-        return apply_prolong(a, x)
+        return grid_transfer.prolong(a, x)
     if isinstance(a, GridRestrict):
-        return apply_restrict(a, x)
+        return grid_transfer.restrict(a, x)
     return _kernel_module(a).spmv(a, x)
 
 

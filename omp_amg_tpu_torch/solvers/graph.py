@@ -63,7 +63,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import (
-    const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm, remote_halo,
+    const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
+    panel_spmm, remote_halo,
 )
 from ..utils.trace import span
 
@@ -76,8 +77,8 @@ from ..utils.trace import span
 # frozen (structured); PERF.md records the measured trade.
 BLOCK = 4
 
-COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, panel_spmm,
-            remote_halo)
+COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
+            panel_spmm, remote_halo)
 
 
 class Program(NamedTuple):
