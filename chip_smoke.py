@@ -69,7 +69,12 @@ Phases (each raises on failure, so the exit code is non-zero):
 11. the options: (11a) ``bench.py``'s ``3d27pt_128_cheby`` (27-point 128³,
    ``AMGParams(smoother="chebyshev")``) structured and PMIS, its counts
    beside the TPU records, then ``dia_spmv`` and ``csr_spmv`` checks on its
-   PMIS levels 0 and 1; (11c) on the 7-point n³ PMIS and structured paths
+   PMIS levels 0 and 1; then PMIS with ``rap="probe"`` (the benchmark's
+   ``pmis27_128_cheby``): phase 5a's checks on its levels, those above 256
+   colours (three colour groups) included, its counts beside the
+   host-valued setup's, and its solve and V-cycle timed both as ``drive``
+   and as the benchmark's cell times them; (11c) on the 7-point n³ PMIS
+   and structured paths
    the device certified loop (``residual="device"``, the default on the
    card) against the host loop: equal counts, ``device_result=True``
    bitwise the host x, warm times and profiles; (11b) there too the W and F
@@ -877,7 +882,8 @@ def spmm_instance_times(name, op, x, flush):
 
 
 def probe_kernel_checks(l, probe, flush):
-    """``panel_spmm`` on A·PV and R·U of the first colour group and
+    """``panel_spmm`` on A·PV and R·U of the first colour group (of every
+    group where the level has more than two, above 256 colours) and
     ``extract_lanes`` on the whole W of level ``l``'s probe, each against
     its twin on the same CUDA tensors, with its library yardstick."""
     import torch
@@ -887,25 +893,26 @@ def probe_kernel_checks(l, probe, flush):
     from omp_amg_tpu_torch.ops import probe_rap as pr
 
     rows = {"panel_spmm": [], "extract_lanes": []}
-    c0, width = probe.groups[0]
-    x = pr.panel_pv(probe, c0, width)
-    for opname, op in (("A·PV", probe.a), ("R·U", probe.r)):
-        csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
-        name = f"panel_spmm:L{l}-{opname}:rows={op.n_rows}:nnz={op.nnz}:" \
-               f"C={width}"
-        spmm_instance_times(name, op, x, flush)
-        rows["panel_spmm"].append(compare(
-            name, lambda: ps.spmm_panel(op, x),
-            lambda: ps.spmm_panel_plain(op, x), PROBE_BOUND,
-            spmm_bytes(op, width), flush,
-            library=lambda: torch.sparse.mm(csr, x),
-            flops=2 * op.nnz * width))
-        x = ps.spmm_panel(op, x)
-        del csr
-    parts = [x]
-    for c0, width in probe.groups[1:]:
-        parts.append(ps.spmm_panel(probe.r, ps.spmm_panel(
-            probe.a, pr.panel_pv(probe, c0, width))))
+    parts = []
+    for k, (c0, width) in enumerate(probe.groups):
+        x = pr.panel_pv(probe, c0, width)
+        if k > 0 and len(probe.groups) <= 2:
+            parts.append(ps.spmm_panel(probe.r, ps.spmm_panel(probe.a, x)))
+            continue
+        for opname, op in (("A·PV", probe.a), ("R·U", probe.r)):
+            csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
+            name = (f"panel_spmm:L{l}-{opname}{f'-g{k}' if k else ''}:"
+                    f"rows={op.n_rows}:nnz={op.nnz}:C={width}")
+            spmm_instance_times(name, op, x, flush)
+            rows["panel_spmm"].append(compare(
+                name, lambda: ps.spmm_panel(op, x),
+                lambda: ps.spmm_panel_plain(op, x), PROBE_BOUND,
+                spmm_bytes(op, width), flush,
+                library=lambda: torch.sparse.mm(csr, x),
+                flops=2 * op.nnz * width))
+            x = ps.spmm_panel(op, x)
+            del csr
+        parts.append(x)
     w = torch.cat(parts, dim=1)
     idx = probe.ac_cidx
     idx64 = idx.long()
@@ -924,7 +931,8 @@ def probe_setup_checks(a, params, flush):
     level the host Galerkin product, the colouring (host seconds) and the
     device numeric phase (CUDA events), its A_c within RAP_BOUND of the
     host product and equal to the setup's own values; kernel checks on
-    levels 0 and 1. Returns (host record, kernel rows)."""
+    levels 0 and 1 and on every level of more than two colour groups.
+    Returns (host record, kernel rows)."""
     import torch
 
     import omp_amg_tpu_torch as amg
@@ -944,14 +952,11 @@ def probe_setup_checks(a, params, flush):
         ac = galerkin_product(a_sp, p_sp)
         host_rap_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        coloring = pr.d2_color(ac)
+        pr.d2_color(ac)
         color_s = time.perf_counter() - t0
         line = (f"probe L{l} rows={a_sp.shape[0]} nnz_A={a_sp.nnz} "
                 f"nnz_Ac={ac.nnz} host_galerkin_s={host_rap_s:.4f} "
                 f"d2_color_s={color_s:.4f}")
-        if coloring is None:
-            print(f"{line} colours>256: host values", flush=True)
-            continue
         probe, _ = pr.build_rap_probe(a_sp, p_sp, ac, device="cuda")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -975,11 +980,32 @@ def probe_setup_checks(a, params, flush):
         if not np.array_equal(setup_vals, host.ops[l + 1].data):
             raise AssertionError(f"probe L{l}: the setup's A_c values are "
                                  "not this numeric phase's")
-        if l < 2:
+        if l < 2 or len(probe.groups) > 2:
             for name, more in probe_kernel_checks(l, probe, flush).items():
                 rows[name] += more
         del probe, vals
     return host, rows
+
+
+def same_probe_values(label, solver, host):
+    """Every coarse A of ``solver``'s hierarchy holds the values of the
+    setup that ``probe_setup_checks`` checked (``host``), and every one
+    came from the probe."""
+    import torch
+
+    from omp_amg_tpu_torch.amg import hierarchy
+
+    for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
+        want = torch.from_numpy(host.ops[l].data.astype(np.float32))
+        if not torch.equal(lv.a.vals.cpu(), want.to(lv.a.vals.dtype)):
+            raise AssertionError(f"{label}: level {l}'s A differs from the "
+                                 "checked setup's")
+    engines = solver.hierarchy.rap_engines
+    print(f"{label} rap_engines={engines} rap_products="
+          f"{dict(hierarchy.rap_products)}", flush=True)
+    if engines != ("probe",) * len(solver.hierarchy.levels):
+        raise AssertionError(f"{label}: not every product was probed: "
+                             f"{engines}")
 
 
 def rap_bench(n):
@@ -999,8 +1025,6 @@ def rap_bench(n):
     galerkin_product(a0, p0)
     host_s = time.perf_counter() - t0
     probe, _ = pr.build_rap_probe(a0, p0, device="cuda")
-    if probe is None:
-        raise AssertionError(f"{n}^3 L0: colouring above the cap")
     ms = cuda_ms(lambda: pr.rap_probe_numeric(probe), reps=5, warm=1)
     print(f"rap_bench n={n}^3 L0 nnz_A={a0.nnz} colours={probe.n_colors} "
           f"rap_probe_ms={ms:.4f} "
@@ -1295,24 +1319,38 @@ def pmis27_kernel_checks(hier, rng, flush):
 
 def cheby_configs(counters, rng, flush):
     """Phase 11a: bench.py's 3d27pt_128_cheby in both pipelines, its counts
-    beside the TPU records. Returns ({path: launches}, kernel rows)."""
+    beside the TPU records; then the PMIS pipeline with the device Galerkin
+    product (``rap="probe"``, the parameters of the benchmark's
+    ``pmis27_128_cheby``): phase 5a's checks on its setup, whose levels 2
+    and 3 need more than 256 colours, its counts beside the host-valued
+    setup's, and its solve timed as the benchmark's cell times it
+    (:func:`cell_times`). Returns ({path: launches}, kernel rows)."""
     import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.amg import hierarchy
 
     a = amg.poisson3d_27pt(CHEBY_N)
     grid = (CHEBY_N,) * 3
-    paths, rows = {}, {}
+    paths, rows, counts = {}, {}, {}
     for pipeline, params, g, used in (
             ("structured", amg.AMGParams(smoother="chebyshev"), grid,
              ("const_stencil", "dia_spmv", "grid_transfer")),
             ("pmis", amg.AMGParams(coarsening="pmis", smoother="chebyshev"),
-             None, ("dia_spmv", "csr_spmv"))):
+             None, ("dia_spmv", "csr_spmv")),
+            ("pmis probe", amg.AMGParams(coarsening="pmis",
+                                         smoother="chebyshev", rap="probe"),
+             None, ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes"))):
         label = f"cheby {pipeline} 27pt n={CHEBY_N}^3"
+        if pipeline == "pmis probe":
+            host, more = probe_setup_checks(a, params, flush)
+            rows.update(more)
+            host_products = hierarchy.rap_products["host"]
         solver, launches, run = drive(label, a, params, g, counters)
         expect_launches(label, launches, used)
         info = run["info"]
         check_certified(label, info, run["scipy_rel"])
-        rec = TPU_RECORD_CHEBY[pipeline]
+        rec = TPU_RECORD_CHEBY[pipeline.split()[0]]
         got = (sum(info["inner_iters"]), info["outer_iters"])
+        counts[pipeline] = got
         print(f"{label} inner={got[0]} ({info['inner_iters']}) "
               f"outer={got[1]} | TPU record (bench_details.json) "
               f"inner={rec[0]} outer={rec[1]}"
@@ -1320,10 +1358,95 @@ def cheby_configs(counters, rng, flush):
         if got != rec:
             histories(label, info)
         if pipeline == "pmis":
-            rows = pmis27_kernel_checks(solver.hierarchy, rng, flush)
-        paths[f"cheby_{pipeline}"] = launches
+            rows.update(pmis27_kernel_checks(solver.hierarchy, rng, flush))
+        if pipeline == "pmis probe":
+            same_probe_values(label, solver, host)
+            if hierarchy.rap_products["host"] != host_products:
+                raise AssertionError(f"{label}: a product took host values")
+            print(f"{label} vs cheby pmis: inner, outer {got} vs "
+                  f"{counts['pmis']}"
+                  f"{'' if got == counts['pmis'] else ' DIFFERS'}",
+                  flush=True)
+            cell_times(label, solver, a, run, flush)
+            del host
+        paths[f"cheby_{pipeline.replace(' ', '_')}"] = launches
         del solver
     return paths, rows
+
+
+def cell_times(label, solver, a, run, flush, reps=GRAPH_RUNS):
+    """``drive``'s warm solve (b and x on the host, one solve on the wall
+    clock) and V-cycle (the eager ``amg.vcycle``, its CUDA events taking
+    in the host's enqueue) beside the benchmark's way of timing the same
+    solver (``bench_port``'s ``solve`` traffic): warm solves with b on the
+    card and x left there (``device_result=True``) between CUDA events,
+    and the preconditioner as the captured loop applies it,
+    ``solver.precondition`` captured in a CUDA graph and replayed with a
+    cold L2; the medians of ``reps`` solves, each way."""
+    import gc
+    import statistics
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+
+    b = amg.default_rhs(a, seed=SEED)
+    b_card = b.to("cuda")
+    kw = {"tol": 1e-8, "residual": "device"}
+
+    def walls(rhs, **more):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve(rhs, **kw, **more)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(out)
+
+    def events(rhs, **more):
+        out = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            solver.solve(rhs, **kw, **more)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    solver.solve(b_card, **kw, device_result=True)   # its graphs captured
+    host_wall = walls(b)
+    card_wall = walls(b_card, device_result=True)
+    card_events = events(b_card, device_result=True)
+
+    r = b_card
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            solver.precondition(r)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            solver.precondition(r)
+    finally:
+        gc.enable()
+    eager_cold = cuda_ms(lambda: solver.precondition(r), flush=flush)
+    graph_cold = cuda_ms(graph.replay, flush=flush)
+    print(f"{label} timed two ways: drive warm_solve_ms="
+          f"{1e3 * run['warm_solve_s']:.3f} (one solve, b and x on the "
+          f"host); median of {reps}: b and x on the host wall_ms="
+          f"{host_wall:.3f}, b and x on the card wall_ms={card_wall:.3f} "
+          f"events_ms={card_events:.3f} (the cell's solve_ms) | V-cycle: "
+          f"drive eager vcycle_ms={run['vcycle_ms']:.4f}, eager cold L2 "
+          f"{eager_cold:.4f}, captured cold L2 {graph_cold:.4f} (the "
+          f"cell's vcycle_ms.solve)", flush=True)
+    del graph
 
 
 def timed_solve(solver, b, **kw):
@@ -3206,11 +3329,7 @@ def main() -> int:
                                               probe, None, counters)
     expect_launches("pmis probe", probe_launches,
                     ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes"))
-    for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
-        want = torch.from_numpy(host.ops[l].data.astype(np.float32))
-        if not torch.equal(lv.a.vals.cpu(), want.to(lv.a.vals.dtype)):
-            raise AssertionError(f"pmis probe: level {l}'s A differs from "
-                                 "the checked setup's")
+    same_probe_values("pmis probe", solver, host)
     hi, pi = host_run["info"], probe_run["info"]
     print(f"pmis probe vs host n={args.n}^3: setup_s "
           f"{probe_run['setup_s']:.3f} vs {host_run['setup_s']:.3f}; inner "

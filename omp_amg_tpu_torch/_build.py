@@ -15,7 +15,9 @@ csrc``), with two differences:
 
 ``native_library()`` builds ``csrc/native.cc`` with g++ and exactly the
 CXXFLAGS of ``csrc/Makefile``, so the host setup is bit-identical to the
-reference's on the same machine. ``cuda_library()`` builds
+reference's on the same machine; the port's own host source
+(``omp_amg_tpu_torch/csrc/d2_color.cc``, the uncapped colouring) goes into
+the same library. ``cuda_library()`` builds
 ``omp_amg_tpu_torch/csrc/*.cu`` with nvcc for Hopper (``sm_90a``) into one
 library with a plain C interface, loaded with ctypes. Each compiler run
 is a ``build.<library>`` span under ``torch.profiler``.
@@ -37,7 +39,8 @@ from .utils.trace import span
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
-NATIVE_SOURCE = _PKG.parent / "csrc" / "native.cc"
+NATIVE_SOURCES = (_PKG.parent / "csrc" / "native.cc",
+                  _PKG / "csrc" / "d2_color.cc")
 CUDA_SOURCE_DIR = _PKG / "csrc"
 # csrc/Makefile:2, verbatim
 NATIVE_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
@@ -88,12 +91,12 @@ def _compile(stem: str, compiler: str, flags, sources) -> Path:
 
 
 def native_library() -> Path:
-    """Path of the host setup library (``csrc/native.cc``), built if
-    needed."""
+    """Path of the host setup library (``csrc/native.cc`` and the port's
+    ``csrc/d2_color.cc``), built if needed."""
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found: cannot build csrc/native.cc")
-    return _compile("libamgnative", cxx, NATIVE_FLAGS, [NATIVE_SOURCE])
+    return _compile("libamgnative", cxx, NATIVE_FLAGS, NATIVE_SOURCES)
 
 
 def _nvcc() -> str:

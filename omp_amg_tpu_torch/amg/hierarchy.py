@@ -27,10 +27,17 @@ reference's. Only the device forms differ:
   operator in ``coarse_chol`` instead of its Cholesky factor.
 
 With ``AMGParams(rap="probe")`` the PMIS setup takes each coarse operator's
-values from the device numeric phase (``ops/probe_rap.py``) on ``device``;
-the host product supplies the pattern, and the values of a level whose
-colouring needs more than 256 colours. ``"auto"`` and ``"host"`` keep the
-host values: the reference's ``"auto"`` picks the probe only on a TPU.
+values from the device numeric phase (``ops/probe_rap.py``) on ``device``,
+the phase ``L<l> RAP probe`` of the setup trace (the copy of its values to
+the host is ``L<l> RAP probe copy``); the host product supplies the
+pattern. Here the port departs from the reference: the reference keeps
+the host values of a level whose colouring needs more than 256 colours (a
+27-point operator's wide coarse rows), the port colours with no cap and
+probes every level. ``"auto"`` and ``"host"`` keep the host values: the
+reference's ``"auto"`` picks the probe only on a TPU.
+``Hierarchy.rap_engines`` names the engine that gave each coarse operator's
+values, recorded where the values are made, and the module's
+``rap_products`` counts the products of the process by engine.
 
 ``amg_setup(..., flavor="device")`` runs the setups' own kernels on
 ``device`` instead (the reference's device flavor): the PMIS setup's
@@ -44,6 +51,7 @@ with the reference's labels, each phase a ``setup.<label>`` span.
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -61,6 +69,10 @@ from .params import AMGParams
 from .structured import GridProlong, GridRestrict
 
 BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
+
+# Galerkin products of every setup and refresh of the process, by the engine
+# that gave their values (``Hierarchy.rap_engines`` holds one hierarchy's)
+rap_products = collections.Counter()
 
 
 @dataclass(frozen=True)
@@ -86,6 +98,13 @@ class Hierarchy:
     coarse_chol: torch.Tensor   # (nc, nc) f32 lower Cholesky factor, or
                                 # the inverse (coarse_solver="inv")
     params: AMGParams
+    rap_engines: Tuple[str, ...] = ()   # per coarse operator, the engine
+                                        # that gave its values: "host" (the
+                                        # host product), "probe" (the device
+                                        # numeric phase), "comb" (the device
+                                        # structured RAP); empty where not
+                                        # known (a hierarchy loaded or
+                                        # converted)
 
     @property
     def n_levels(self) -> int:
@@ -292,6 +311,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     """
     import scipy.sparse as sp
 
+    from ..ops.probe_rap import build_rap_probe
     from ..ops.rap import galerkin_product
     from ..utils.memtune import tune_malloc
     from . import host_setup as hs
@@ -343,7 +363,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
         cache.start(a, a_sp)
     a_lvl = fine_operator(a, device)
 
-    levels = []
+    levels, engines = [], []   # engines: who gave each A_c its values
     host = HostSetup(ops=[a_sp], states=[], p=[])
     trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
@@ -388,7 +408,12 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
                                    p_col=p_col, p_val=p_val, p_sp=p_sp,
                                    ac_sp=ac_sp, patterns=patterns)
             if params.rap == "probe":
-                ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
+                probe, _ = build_rap_probe(a_sp, p_sp, ac_sp, device=device)
+        if params.rap == "probe":
+            ac_sp = _probe_values(trace, l, probe, ac_sp)
+            engines.append("probe")
+        else:
+            engines.append("host")
         with trace.phase(f"L{l} lmax"):
             if params.smoother == "l1jacobi":
                 dinv = 1.0 / np.asarray(np.abs(a_sp).sum(axis=1)).ravel()
@@ -414,7 +439,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
         with trace.phase(f"L{len(levels)} next-planes"):
             cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
 
-    hier = _finish(levels, a_sp.toarray(), params, device)
+    hier = _finish(levels, a_sp.toarray(), params, device, engines)
     if cache is not None:
         cache.finish(hier, params)
     if keep_host:
@@ -422,14 +447,17 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     return hier
 
 
-def _finish(levels, dense, params: AMGParams, device) -> Hierarchy:
+def _finish(levels, dense, params: AMGParams, device,
+            engines) -> Hierarchy:
     """The hierarchy over ``levels`` with the coarse-solve data of the
-    densified coarsest operator ``dense`` (f64 host)."""
+    densified coarsest operator ``dense`` (f64 host); ``engines`` names the
+    engine of each level's Galerkin product, counted in ``rap_products``."""
     fac = _coarse_factor(np.asarray(dense, np.float64), params)
+    rap_products.update(engines)
     return Hierarchy(levels=tuple(levels),
                      coarse_chol=torch.from_numpy(
                          fac.astype(np.float32)).to(device),
-                     params=params)
+                     params=params, rap_engines=tuple(engines))
 
 
 def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
@@ -448,6 +476,7 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
     import dataclasses
     import warnings
 
+    from ..ops.probe_rap import build_rap_probe
     from ..ops.rap import galerkin_product
     from ..sparse.formats import csr_from_ell, csr_to_scipy, diagonal
     from .interp import direct_interpolation
@@ -468,7 +497,7 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
         a_sp = sp.csr_matrix(a, dtype=np.float64)
     a_dev = fine_operator(a, device)
 
-    levels = []
+    levels, engines = [], []   # engines: who gave each A_c its values
     host = HostSetup(ops=[a_sp], states=[], p=[])
     trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
@@ -494,7 +523,12 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
         with trace.phase(f"L{l} RAP"):
             ac_sp = galerkin_product(a_sp, p_sp, pt_sp=pt_sp)
             if params.rap == "probe":
-                ac_sp = _probe_values(a_sp, p_sp, ac_sp, device)
+                probe, _ = build_rap_probe(a_sp, p_sp, ac_sp, device=device)
+        if params.rap == "probe":
+            ac_sp = _probe_values(trace, l, probe, ac_sp)
+            engines.append("probe")
+        else:
+            engines.append("host")
         with trace.phase(f"L{l} lmax"):
             pr_dt = _value_dtype(n)
             r_dev = csr_from_scipy(pt_sp, pr_dt, device=device)
@@ -519,25 +553,28 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
         a_sp = ac_sp
         a_dev = csr_from_scipy(ac_sp, torch.float32, device=device)
 
-    hier = _finish(levels, a_sp.toarray(), params, device)
+    hier = _finish(levels, a_sp.toarray(), params, device, engines)
     return (hier, host) if keep_host else hier
 
 
-def _probe_values(a_sp, p_sp, ac_sp, device):
-    """A_c with its values from the device numeric phase (f32 results, as
-    float64, written in CSR order: ELL slot s of a row is CSR position s,
-    because ``galerkin_product`` returns A_c zero-free and sorted), or
-    ``ac_sp`` itself when the colouring exceeds the cap."""
-    from ..ops.probe_rap import build_rap_probe, ell_slots, rap_probe_numeric
+def _probe_values(trace, l: int, probe, ac_sp):
+    """A_c with its values from the device numeric phase. The phase
+    ``L<l> RAP probe`` holds the numeric phase alone, marked when its
+    device work ends; ``L<l> RAP probe copy`` selects the real slots of its
+    planes on the device and copies them to the host once, as float64
+    (row-major real slots are A_c's CSR order, because
+    ``galerkin_product`` returns A_c zero-free and sorted)."""
+    import scipy.sparse as sp
 
-    probe, _ = build_rap_probe(a_sp, p_sp, ac_sp=ac_sp, device=device)
-    if probe is None:
-        return ac_sp
-    vals = rap_probe_numeric(probe).cpu().numpy()
-    out = ac_sp.copy()
-    # row-major selection of the real slots = CSR order
-    out.data = vals[ell_slots(ac_sp, vals.shape[1])].astype(np.float64)
-    return out
+    from ..ops.probe_rap import rap_probe_numeric
+
+    with trace.phase(f"L{l} RAP probe") as ph:
+        planes = rap_probe_numeric(probe)
+        ph.sync = planes
+    with trace.phase(f"L{l} RAP probe copy"):
+        vals = planes.masked_select(probe.ac_mask != 0).double().cpu()
+    return sp.csr_matrix((vals.numpy(), ac_sp.indices.copy(),
+                          ac_sp.indptr.copy()), shape=ac_sp.shape)
 
 
 def _estimate_lmax_apply(apply_fn, dinv: np.ndarray, n: int,
@@ -632,7 +669,7 @@ def _amg_setup_structured(a, dims, params: AMGParams, device,
                                              offsets=tuple(offsets))))
 
     hier = _finish(levels, _dense_from_planes(offsets, data, n), params,
-                   device)
+                   device, ("host",) * len(levels))
     return (hier, host) if keep_host else hier
 
 
@@ -736,7 +773,8 @@ def _amg_setup_structured_device(a, dims, params: AMGParams, device,
                                              offsets=tuple(offsets))))
 
     hier = _finish(levels, _dense_from_planes(offsets, data.cpu().numpy(),
-                                              n), params, device)
+                                              n), params, device,
+                   ("comb",) * len(levels))
     return (hier, host) if keep_host else hier
 
 

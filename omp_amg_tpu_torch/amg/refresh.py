@@ -356,7 +356,7 @@ def amg_refresh(a_new, cache: SetupCache, *, verify_mask: bool = True):
     from . import host_setup as hs
     from .hierarchy import (
         Hierarchy, _coarse_factor, _estimate_lmax_host,
-        fine_operator, make_level,
+        fine_operator, make_level, rap_products,
     )
 
     tune_malloc()
@@ -514,7 +514,10 @@ def amg_refresh(a_new, cache: SetupCache, *, verify_mask: bool = True):
     with trace.phase("pack+upload") as ph:
         coarse_chol = torch.from_numpy(fac.astype(np.float32)).to(device)
         ph.sync = coarse_chol
+    # the values of every product come from the host, rap="probe" or not
+    engines = ("host",) * len(levels)
+    rap_products.update(engines)
     hier = Hierarchy(levels=tuple(levels), coarse_chol=coarse_chol,
-                     params=params)
+                     params=params, rap_engines=engines)
     cache.hier = hier
     return hier

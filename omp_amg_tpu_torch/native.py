@@ -2,11 +2,14 @@
 
 Counterpart of ``omp_amg_tpu/native.py``, cut to the entry points the host
 setups call: ``strength_mask``, ``pmis``, ``extpi_interp``, ``spgemm``,
-``CsrMatvec``, ``ell_fill`` and ``d2_color`` (PMIS, the last for
-``AMGParams(rap="probe")``); ``dia_apply``, ``prolong``, ``restrict`` and
-``rap_stencil`` (structured); ``spgemm_numeric`` and ``perm_gather`` (the
-value-only refresh, :mod:`.amg.refresh`). numpy only. The library is
-built on first use by :mod:`omp_amg_tpu_torch._build` (never the committed
+``CsrMatvec`` and ``ell_fill`` (PMIS); ``d2_color_wide`` (the port's own
+uncapped colouring, ``omp_amg_tpu_torch/csrc/d2_color.cc``, built into the
+same library, for ``AMGParams(rap="probe")``); ``dia_apply``, ``prolong``,
+``restrict`` and ``rap_stencil`` (structured); ``spgemm_numeric`` and
+``perm_gather`` (the value-only refresh, :mod:`.amg.refresh`).
+``d2_color`` binds native.cc's colouring, capped at 256 colours, which the
+tests hold the wide one to. numpy only. The library is built on first use
+by :mod:`omp_amg_tpu_torch._build` (never the committed
 ``csrc/libamgnative.so``). As in the reference, each entry point returns
 None, or runs its numpy twin, when the library could not be built;
 ``available()`` says which ran and ``build_error()`` why.
@@ -82,6 +85,8 @@ def _load():
     lib.rap_stencil_f64.restype = None
     lib.d2_color_greedy.argtypes = [i64, i64, i64p, i32p, i64p, i32p, i32p]
     lib.d2_color_greedy.restype = i64
+    lib.d2_color_greedy_wide.argtypes = [i64, i64, i64p, i32p, i64, i32p]
+    lib.d2_color_greedy_wide.restype = i64
     _lib = lib
     return _lib
 
@@ -179,6 +184,28 @@ def d2_color(m):
         np.ascontiguousarray(csc.indices, np.int32), colors)
     if nc < 0:
         return None
+    return colors, int(nc)
+
+
+def d2_color_wide(m):
+    """The same colouring as :func:`d2_color` with no cap on the colours
+    (``csrc/d2_color.cc``: the masks start as wide as the longest row needs
+    and widen on demand). Returns (colours int32 over the columns,
+    n_colours), or None when the library is unavailable."""
+    import scipy.sparse as sp
+
+    lib = _load()
+    if lib is None:
+        return None
+    csc = sp.csc_matrix(m)
+    n_rows, n_cols = csc.shape
+    longest = int(np.bincount(csc.indices, minlength=n_rows).max()) \
+        if csc.nnz else 0
+    colors = np.empty(n_cols, np.int32)
+    nc = lib.d2_color_greedy_wide(
+        n_rows, n_cols, np.ascontiguousarray(csc.indptr, np.int64),
+        np.ascontiguousarray(csc.indices, np.int32), max(1, -(-longest // 64)),
+        colors)
     return colors, int(nc)
 
 

@@ -5,8 +5,8 @@ Counterpart of ``omp_amg_tpu/ops/probe_rap.py``. The symbolic phase runs on
 the host, once per level; the numeric phase runs on the device:
 
 1. colour the columns of A_c = PᵀAP so that no two columns sharing a row get
-   the same colour (distance-2 greedy: ``d2_color``, native first, numpy
-   twin otherwise; at most 256 colours);
+   the same colour (distance-2 greedy: ``d2_color``, the port's native
+   colouring first, its numpy twin otherwise; any number of colours);
 2. for each group of at most 128 colours, build the (n, C) panel PV = P·V of
    the one-hot colour panel V (one deterministic scatter per P slot), then
    U = A·PV and W_g = Pᵀ·U with the panel SpMM kernel
@@ -27,7 +27,15 @@ Design against the reference:
   and schedule TPU VMEM windows and are not ported. With them go their caps
   (``sparse/panels.py``, where ``plan_panel_spmm`` returns None): a level
   the reference leaves to the host because a plan cap is exceeded is probed
-  here. Only the 256-colour cap remains.
+  here.
+- The reference's colouring (``csrc/native.cc``'s ``d2_color_greedy``) keeps
+  its colour masks 4 words wide and gives up above 256 colours; the
+  reference then keeps that level's host values. The port colours with no
+  cap (``csrc/d2_color.cc``: the same greedy, masks widened on demand), so
+  every level is probed: a 27-point operator's wide coarse rows need more
+  than 256 colours. Below 256 colours the two colourings are the same, bit
+  for bit, and so are the hierarchies. The colour groups, the panel SpMM
+  and the gather take any number of colours.
 """
 
 from __future__ import annotations
@@ -41,7 +49,6 @@ from ..sparse.formats import Csr, csr_from_scipy, ell_planes_from_scipy
 from .extract_lanes import extract_lanes
 from .panel_spmm import spmm_panel
 
-MAX_COLORS = 256     # d2_color_greedy's cap in csrc/native.cc
 GROUP = 128          # colours per probe group
 ALIGN = 32           # panel widths are multiples of one warp
 
@@ -50,25 +57,24 @@ def d2_color(ac):
     """Distance-2 greedy column colouring (native; numpy twin when the
     library is missing). Both walk the columns in ascending order with
     per-row colour bitmasks and take the lowest free colour, so they give
-    the same colouring. Returns (colours, n_colours) or None above the
-    256-colour cap."""
+    the same colouring, and below 256 colours the reference's. Returns
+    (colours, n_colours)."""
     from .. import native
 
-    out = native.d2_color(ac)
-    if out is not None:
-        return out
-    if native.available():
-        return None   # native ran and exceeded the colour cap
-    return _d2_color_np(ac)
+    out = native.d2_color_wide(ac)
+    return out if out is not None else _d2_color_np(ac)
 
 
 def _d2_color_np(ac):
+    """The numpy twin of ``d2_color``: masks as wide as the longest row
+    needs, doubled whenever a column finds every colour taken."""
     import scipy.sparse as sp
 
-    csr = sp.csr_matrix(ac)
-    csc = csr.tocsc()
-    n_rows, n_cols = csr.shape
-    words = MAX_COLORS // 64
+    csc = sp.csc_matrix(ac)
+    n_rows, n_cols = csc.shape
+    longest = int(np.bincount(csc.indices, minlength=n_rows).max()) \
+        if csc.nnz else 0
+    words = max(1, -(-longest // 64))
     rowmask = np.zeros((n_rows, words), np.uint64)
     colors = np.empty(n_cols, np.int32)
     ncolors = 0
@@ -84,7 +90,10 @@ def _d2_color_np(ac):
                 c = w * 64 + ((free & -free).bit_length() - 1)
                 break
         if c < 0:
-            return None
+            # every colour below 64·words is taken: widen the masks
+            c = 64 * words
+            rowmask = np.hstack([rowmask, np.zeros_like(rowmask)])
+            words *= 2
         colors[j] = c
         ncolors = max(ncolors, c + 1)
         rowmask[rows, c >> 6] |= np.uint64(1) << np.uint64(c & 63)
@@ -121,12 +130,11 @@ def ell_slots(m, width: int) -> np.ndarray:
 
 
 def build_rap_probe(a_sp, p_sp, ac_sp=None, *, device):
-    """Host symbolic phase; ``ac_sp`` (the pattern of PᵀAP, zero-free and
-    sorted) is computed with ``galerkin_product`` if not given.
+    """Host symbolic phase, its planes uploaded to ``device`` (and there
+    the kernel library loaded); ``ac_sp`` (the pattern of PᵀAP, zero-free
+    and sorted) is computed with ``galerkin_product`` if not given.
 
-    Returns (RapProbe on ``device``, ac_sp), or (None, ac_sp) when the
-    colouring needs more than 256 colours (the caller keeps the host
-    values)."""
+    Returns (RapProbe on ``device``, ac_sp)."""
     import scipy.sparse as sp
 
     from .rap import galerkin_product
@@ -135,10 +143,7 @@ def build_rap_probe(a_sp, p_sp, ac_sp=None, *, device):
     p_sp = sp.csr_matrix(p_sp)
     if ac_sp is None:
         ac_sp = galerkin_product(a_sp, p_sp)
-    out = d2_color(ac_sp)
-    if out is None:
-        return None, ac_sp
-    colors, ncolors = out
+    colors, ncolors = d2_color(ac_sp)
 
     if np.count_nonzero(ac_sp.data) != ac_sp.nnz:
         raise ValueError("A_c pattern holds explicit zeros: its ELL slots "
@@ -160,6 +165,12 @@ def build_rap_probe(a_sp, p_sp, ac_sp=None, *, device):
         ac_cidx=dev(np.where(real, colors[ac_col], 0).astype(np.int32)),
         ac_mask=dev(real.astype(np.float32)),
         n_colors=int(ncolors))
+    if torch.device(device).type == "cuda":
+        # the kernel library's first build and load land here, so that the
+        # numeric phase holds its device work alone
+        from .._build import cuda_kernels
+
+        cuda_kernels()
     return probe, ac_sp
 
 

@@ -22,8 +22,18 @@ The spans, by layer:
   ``graph.block`` (one block's replay, or one eager block or step),
   ``graph.flag`` (the host read of ``active``), ``graph.finish`` (the one
   host copy and the clone of x);
-- setup: ``setup.<label>``, each phase of :class:`SetupTrace`;
+- setup: ``setup.<label>``, each phase of :class:`SetupTrace`; with
+  ``AMGParams(rap="probe")`` the PMIS setups' ``setup.L<l> RAP probe``
+  holds level l's device numeric phase of the Galerkin product alone
+  (marked when its device work ends), ``setup.L<l> RAP probe copy`` the
+  selection of its values on the device and their copy to the host, and
+  ``setup.L<l> RAP`` the host product and the probe's symbolic phase;
 - kernels (``_build.py``): ``build.<library>``, one compiler run.
+
+Counters beside the kernels' ``launches``: ``amg/hierarchy.py``'s
+``rap_products`` counts the Galerkin products of the process by the engine
+that gave their values (``host``, ``probe``, ``comb``), and each
+hierarchy's ``rap_engines`` names that engine per coarse operator.
 
 :class:`SetupTrace` is the setups' per-phase trace. ``OMP_AMG_SETUP_TIMERS=1``
 prints ``[setup] <label>: <s>`` to stderr per phase (the seconds since the

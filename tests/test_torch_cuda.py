@@ -371,13 +371,9 @@ def probes():
     params = amg.AMGParams(coarsening="pmis", rap="probe")
     _, host = amg.amg_setup(amg.poisson3d_7pt(24), params, device="cuda",
                             keep_host=True)
-    out = []
-    for l in range(len(host.p)):
-        probe, _ = probe_rap.build_rap_probe(host.ops[l], host.p[l],
-                                             device="cuda")
-        if probe is not None:
-            out.append(probe)
-    return out
+    return [probe_rap.build_rap_probe(host.ops[l], host.p[l],
+                                      device="cuda")[0]
+            for l in range(len(host.p))]
 
 
 def test_probe_kernels_match_twins_on_24cubed_levels(probes):

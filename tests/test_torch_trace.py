@@ -3,7 +3,8 @@ a certified solve under ``torch.profiler`` records its facade span and,
 inside it, the certified loop's and the block loop's spans with the counts
 the solve's own records give; with the profiler off a span is the shared
 no-op and changes nothing; the setup trace keeps its labels, and each of
-its phases is a ``setup.<label>`` span."""
+its phases is a ``setup.<label>`` span, the device numeric phase of the
+Galerkin product (``rap="probe"``) one of its own."""
 
 import collections
 import re
@@ -125,6 +126,11 @@ SETUPS = {
     "pmis-device": lambda a: amg.amg_setup(
         a, amg.AMGParams(coarsening="pmis", interp="direct"), device="cpu",
         flavor="device"),
+    "pmis-probe": lambda a: amg.amg_setup(
+        a, amg.AMGParams(coarsening="pmis", rap="probe"), device="cpu"),
+    "pmis-device-probe": lambda a: amg.amg_setup(
+        a, amg.AMGParams(coarsening="pmis", interp="direct", rap="probe"),
+        device="cpu", flavor="device"),
     "structured": lambda a: amg.amg_setup(a, amg.AMGParams(),
                                           grid=(N,) * 3, device="cpu"),
     "structured-device": lambda a: amg.amg_setup(
@@ -148,6 +154,27 @@ def test_setup_trace_keeps_its_labels_and_each_phase_is_a_span(
                                         for label in labels]
     err = capsys.readouterr().err
     assert all(f"[setup] {label}: " in err for label in labels)
+
+
+@pytest.mark.parametrize("setup", ["pmis-probe", "pmis-device-probe"])
+def test_probe_numeric_phase_is_its_own_span_and_mark(setup, monkeypatch):
+    monkeypatch.setenv("OMP_AMG_SETUP_TIMERS", "1")
+    a = amg.poisson3d_7pt(N)
+    hier, spans = _spans(lambda: SETUPS[setup](a))
+    labels = [label for label, _ in amg.last_setup_trace()]
+    levels = len(hier.levels)
+    probes = [label for label in labels if label.endswith(" RAP probe")]
+    assert probes == [f"L{l} RAP probe" for l in range(levels)]
+    for l in range(levels):
+        # the host product and the symbolic phase, the numeric phase, then
+        # the copy of its values to the host
+        i = labels.index(f"L{l} RAP probe")
+        assert labels[i - 1] == f"L{l} RAP"
+        assert labels[i + 1] == f"L{l} RAP probe copy"
+    names = [n for n, _, _ in spans]
+    assert [n for n in names if n.endswith(" RAP probe")] == [
+        "setup." + label for label in probes]
+    assert hier.rap_engines == ("probe",) * levels
 
 
 def test_refresh_phases_are_spans_under_the_trace(monkeypatch):
