@@ -43,6 +43,14 @@ Phases (each raises on failure, so the exit code is non-zero):
 6a. ``grid_transfer`` kernel checks: restrict, prolong and prolong-add at
    256³ → 128³ in f32 and f64 against the slice-form twin on the same CUDA
    tensors, bit for bit, each timed beside its bound and the twin;
+6b. ``pcg_update`` kernel checks: ``xr`` and ``p`` on 256³ vectors in f32
+   and f64 against the where-form twin, bit for bit, a false flag writing
+   nothing, each timed beside its bound and the twin;
+6c. one captured ``amg_pcg`` solve on the PMIS and the structured 256³
+   paths against the where-form step the kernel replaced, captured the
+   same way: count, history and x bit for bit, 2 ``pcg_update`` launches
+   per executed iteration, both solves timed (where-form, kernel, kernel,
+   where-form) and profiled;
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
    grid=(n,)*3, device="cuda").solve(b, tol=1e-8)``; then ``dia_spmv``
    checks on its Galerkin levels;
@@ -202,6 +210,10 @@ CSR_BOUND = 1e-5    # rows of up to ~100 terms, summed in another order
 CONST_BOUND = 0.0   # same products and order as the twin: bitwise
 TRANSFER_BOUND = 0.0  # grid_transfer: the twin's nesting and rounding
 TRANSFER_N = 256    # grid_transfer checks: the structured cell's level 0
+PCG_BOUND = 0.0     # pcg_update: the where-form's rounding, bit for bit
+PCG_N = 256         # pcg_update checks and the where-form check: the
+                    # benchmark cells' 256³
+PCG_TOL = 1e-6      # the where-form check's solve (f32 PCG)
 PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
 HALO_BOUND = 0.0    # remote_halo is a copy: exact
 SPIN_CYCLES = 2_000_000  # cuda_ms' spin before each timed call, ~1 ms
@@ -721,6 +733,178 @@ def grid_transfer_checks(rng, flush):
     return rows
 
 
+def pcg_update_checks(rng, flush):
+    """The PCG update kernel's two entry points on ``PCG_N``³ vectors, f32
+    and f64, masked by a true flag as the captured step runs them, against
+    the plain twin (the where-form written back) on the same CUDA tensors,
+    bitwise; a false flag writes nothing. Bytes: xr reads x, p, r, q and
+    writes x, r; p reads z, p and writes p. Each timed call updates its own
+    buffers in place again."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import pcg_update as pu
+
+    n = PCG_N ** 3
+    rows = []
+    for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        size = torch.finfo(dtype).bits // 8
+        vecs = [_vec(rng, n, "cuda").to(dtype) for _ in range(5)]
+        alpha = torch.tensor(0.37, dtype=dtype, device="cuda")
+        beta = torch.tensor(0.61, dtype=dtype, device="cuda")
+        on = torch.tensor(True, device="cuda")
+        off = torch.tensor(False, device="cuda")
+        kx, kr, kp, kq, kz = (v.clone() for v in vecs)
+        tx, tr, tp, tq, tz = (v.clone() for v in vecs)
+        pu.xr(kx, kr, kp, kq, alpha, off)
+        pu.p_update(kp, kz, beta, off)
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip((kx, kr, kp), vecs)):
+            raise AssertionError(f"pcg_update {tag}: a false flag wrote")
+        cases = {
+            "xr": (lambda: pu.xr(kx, kr, kp, kq, alpha, on) or (kx, kr),
+                   lambda: pu.xr_twin(tx, tr, tp, tq, alpha, on) or (tx, tr),
+                   6 * size * n),
+            "p": (lambda: pu.p_update(kp, kz, beta, on) or (kp,),
+                  lambda: pu.p_twin(tp, tz, beta, on) or (tp,),
+                  3 * size * n),
+        }
+        rows += [compare(f"pcg_update:{PCG_N}^3:{mode}:{tag}", kern, pl,
+                         PCG_BOUND, nbytes, flush, flat=torch.cat)
+                 for mode, (kern, pl, nbytes) in cases.items()]
+        del vecs, kx, kr, kp, kq, kz, tx, tr, tp, tq, tz
+    return rows
+
+
+def where_form_program(apply_a, precond, maxiter):
+    """The standard PCG steps as they ran on one device before the PCG
+    update kernel: every vector update a new tensor (a multiply by the
+    0-dim scalar and an add), selected by ``torch.where(active, new,
+    old)``, z kept in the state."""
+    import torch
+
+    from omp_amg_tpu_torch.solvers import graph as G
+    from omp_amg_tpu_torch.solvers.cg import CGResult, host_copy
+
+    def start(b, tol, x0):
+        x, r = torch.zeros_like(b), b.clone()
+        bnorm = G.guard(torch.linalg.vector_norm(b))
+        z = precond(r)
+        rnorm = torch.linalg.vector_norm(r)
+        hist, k = G.new_history(maxiter, rnorm)
+        thr = tol * bnorm
+        return dict(x=x, r=r, z=z, p=z, rz=torch.dot(r, z), k=k,
+                    active=(rnorm > thr) & (k < maxiter), hist=hist,
+                    thr=thr, bnorm=bnorm)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        q = apply_a(p)
+        alpha = rz / torch.dot(p, q)
+        x_n = x + alpha * p
+        r_n = r - alpha * q
+        z_n = precond(r_n)
+        rz_n = torch.dot(r_n, z_n)
+        beta = rz_n / rz
+        p_n = z_n + beta * p
+        rnorm = torch.linalg.vector_norm(r_n)
+        k, active = G.advance(st, maxiter, rnorm > st["thr"])
+        G.record(st["hist"], k, rnorm, st["active"])
+        return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
+                    p=sel(p_n, p), rz=sel(rz_n, rz), k=k, active=active)
+
+    def finish(st):
+        k, history, bnorm = host_copy(st, "bnorm")
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(history[-1] / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
+
+
+class _Owner:
+    """Holds the where-form's captured runner (``graph.run``'s owner)."""
+
+
+def pcg_where_form_checks(counters):
+    """Phase 6c: one captured standard PCG solve (``amg_pcg``, to
+    ``PCG_TOL``) on the benchmark cells' two 256³ paths, PMIS (host setup)
+    and structured (device setup), against the where-form step the kernel
+    replaced (:func:`where_form_program`) captured the same way: count, history and
+    x bit for bit; ``pcg_update`` launches 2 per executed iteration of a
+    replayed solve (frozen ones included) and the where-form none; both
+    solves timed (CUDA events, warm, median of 5) and profiled."""
+    import statistics
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops.spmv import spmv
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    a = amg.poisson3d_7pt(PCG_N)
+    for label, params, grid, flavor in (
+            ("pmis", amg.AMGParams(coarsening="pmis"), None, "host"),
+            ("structured", amg.AMGParams(), (PCG_N,) * 3, "device")):
+        tag = f"pcg where-form {label} n={PCG_N}^3"
+        hier = amg.amg_setup(a, params, device="cuda", grid=grid,
+                             flavor=flavor)
+        b = amg.default_rhs(a, seed=SEED).to("cuda")
+        a0 = hier.levels[0].a
+        owner = _Owner()
+        program = where_form_program(lambda v: spmv(a0, v),
+                                     lambda r: amg.vcycle(hier, r), 100)
+
+        def where_form():
+            return G.run(program, b, PCG_TOL, None, owner=owner,
+                         key="where-form", keep=(a0,))
+
+        def kernel():
+            return amg.amg_pcg(a0, b, hier, tol=PCG_TOL, maxiter=100)
+        where_form(), kernel()       # the captures
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        got = kernel()
+        torch.cuda.synchronize()
+        mine = {k: m.launches for k, m in counters.items()}
+        reset_counters(counters)
+        want = where_form()
+        torch.cuda.synchronize()
+        theirs = {k: m.launches for k, m in counters.items()}
+        blocks = -(-max(got.iters, 1) // G.BLOCK)
+        same = (got.iters == want.iters and got.history == want.history
+                and torch.equal(got.x, want.x))
+        ms = {}
+        for side, fn in (("where", where_form), ("kernel", kernel),
+                         ("kernel2", kernel), ("where2", where_form)):
+            ms[side] = statistics.median(
+                cuda_ms(fn, reps=1, warm=0) for _ in range(5))
+        print(f"{tag}: iters={got.iters} (where-form {want.iters}) history "
+              f"and x bitwise the where-form's: {same}; pcg_update launches "
+              f"{mine['pcg_update']} (2 x {G.BLOCK} x {blocks} blocks), "
+              f"where-form {theirs['pcg_update']}; solve ms (events, median "
+              f"of 5, where-form/kernel/kernel/where-form) "
+              f"{ms['where']:.3f} {ms['kernel']:.3f} {ms['kernel2']:.3f} "
+              f"{ms['where2']:.3f}", flush=True)
+        if not same:
+            print(f"history {tag} kernel: "
+                  + " ".join(f"{h:.9e}" for h in got.history), flush=True)
+            print(f"history {tag} where-form: "
+                  + " ".join(f"{h:.9e}" for h in want.history), flush=True)
+            raise AssertionError(f"{tag}: the captured solve differs from "
+                                 "the where-form's")
+        if mine["pcg_update"] != 2 * G.BLOCK * blocks or \
+                theirs["pcg_update"] != 0:
+            raise AssertionError(f"{tag}: pcg_update launched "
+                                 f"{mine['pcg_update']} times (expected "
+                                 f"{2 * G.BLOCK * blocks}), the where-form "
+                                 f"{theirs['pcg_update']}")
+        profile_solve(f"{tag} kernel", None, None, run=kernel)
+        profile_solve(f"{tag} where-form", None, None, run=where_form)
+        del hier, owner, program, b, a0, got, want
+        torch.cuda.empty_cache()
+
+
 def reset_counters(counters):
     for mod in counters.values():
         mod.launches = 0
@@ -1033,9 +1217,10 @@ def rap_bench(n):
           f"host_gnnz_per_s={a0.nnz / host_s / 1e9:.4f}", flush=True)
 
 
-def profile_solve(label, solver, b, top=8, **solve_kw):
-    """One warm certified solve (``solve_kw``: more ``solve`` arguments)
-    under ``torch.profiler``: wall seconds, device busy milliseconds (the
+def profile_solve(label, solver, b, top=8, run=None, **solve_kw):
+    """One warm certified solve (``solve_kw``: more ``solve`` arguments),
+    or the call ``run``, under ``torch.profiler``: wall seconds, device busy
+    milliseconds (the
     profiler's "Self CUDA time total": the self device time of the device
     events) and their share of the wall, and the ``top`` device items by
     time. Returns (wall seconds, busy milliseconds)."""
@@ -1047,7 +1232,10 @@ def profile_solve(label, solver, b, top=8, **solve_kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.solve(b, tol=1e-8, **solve_kw)
+        if run is None:
+            solver.solve(b, tol=1e-8, **solve_kw)
+        else:
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.key_averages()
@@ -1333,12 +1521,13 @@ def cheby_configs(counters, rng, flush):
     paths, rows, counts = {}, {}, {}
     for pipeline, params, g, used in (
             ("structured", amg.AMGParams(smoother="chebyshev"), grid,
-             ("const_stencil", "dia_spmv", "grid_transfer")),
+             ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update")),
             ("pmis", amg.AMGParams(coarsening="pmis", smoother="chebyshev"),
-             None, ("dia_spmv", "csr_spmv")),
+             None, ("dia_spmv", "csr_spmv", "pcg_update")),
             ("pmis probe", amg.AMGParams(coarsening="pmis",
                                          smoother="chebyshev", rap="probe"),
-             None, ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes"))):
+             None, ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes",
+                    "pcg_update"))):
         label = f"cheby {pipeline} 27pt n={CHEBY_N}^3"
         if pipeline == "pmis probe":
             host, more = probe_setup_checks(a, params, flush)
@@ -1784,7 +1973,8 @@ def refresh_paths(counters):
     res = amg.amg_pcg(h.levels[0].a, b, h, tol=1e-6, maxiter=100)
     torch.cuda.synchronize()
     launches = read()
-    expect_launches("refresh128", launches, ("dia_spmv", "csr_spmv"))
+    expect_launches("refresh128", launches,
+                    ("dia_spmv", "csr_spmv", "pcg_update"))
     shared = all(
         getattr(lv, name).indptr.data_ptr()
         == getattr(l0, name).indptr.data_ptr()
@@ -1859,7 +2049,7 @@ def refresh_paths(counters):
           f"outer={fi['outer_iters']} | pattern guard warnings={tripped} "
           f"launches={ {k: v for k, v in launches.items() if v} }",
           flush=True)
-    expect_launches(label, launches, ("dia_spmv", "csr_spmv"))
+    expect_launches(label, launches, ("dia_spmv", "csr_spmv", "pcg_update"))
     check_certified(label, info, rel)
     if tripped:
         raise AssertionError(f"{label}: the refresh fell back to a fresh "
@@ -1923,7 +2113,7 @@ def cli_paths(counters):
     with tempfile.TemporaryDirectory() as tmp:
         _, paths["cli_structured"] = run(
             f"3d7pt n={n}", ["--problem", "3d7pt", "--n", str(n)],
-            ("const_stencil", "dia_spmv", "grid_transfer"))
+            ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update"))
 
         # PMIS, saved; the saved hierarchy captured for the bitwise check
         h_path = os.path.join(tmp, "h.npz")
@@ -1938,12 +2128,14 @@ def cli_paths(counters):
         try:
             first, paths["cli_pmis_save"] = run(
                 f"3d7pt n={n} pmis --save-hierarchy",
-                pmis + ["--save-hierarchy", h_path], ("dia_spmv", "csr_spmv"))
+                pmis + ["--save-hierarchy", h_path],
+                ("dia_spmv", "csr_spmv", "pcg_update"))
         finally:
             amg_io.save_hierarchy = save
         loaded, paths["cli_pmis_load"] = run(
             f"3d7pt n={n} pmis --load-hierarchy",
-            pmis + ["--load-hierarchy", h_path], ("dia_spmv", "csr_spmv"))
+            pmis + ["--load-hierarchy", h_path],
+            ("dia_spmv", "csr_spmv", "pcg_update"))
         want = dict(hier_tensors(saved.pop("hier")))
         got = dict(hier_tensors(amg.load_hierarchy(h_path, device="cuda")))
         same = sorted(got) == sorted(want) and all(
@@ -1960,7 +2152,8 @@ def cli_paths(counters):
         m_path = os.path.join(tmp, "a.mtx")
         amg.write_matrix_market(m_path, amg.poisson3d_7pt(CLI_MATRIX_N))
         _, paths["cli_matrix"] = run(f"--matrix 3d7pt n={CLI_MATRIX_N}",
-                                     ["--matrix", m_path], ("csr_spmv",))
+                                     ["--matrix", m_path],
+                                     ("csr_spmv", "pcg_update"))
 
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
@@ -2719,7 +2912,7 @@ def device_setups(n, counters, s3_setup_s):
     paths["pmis_direct_device"] = launches["device"]
     paths["pmis_direct_host"] = launches["host"]
     expect_launches("pmis-direct device", launches["device"],
-                    ("dia_spmv", "csr_spmv"))
+                    ("dia_spmv", "csr_spmv", "pcg_update"))
     setup_used = runs["device"]["setup_launches"]
     if not (setup_used["dia_spmv"] > 0 and setup_used["csr_spmv"] > 0):
         raise AssertionError("pmis device setup: λmax did not run dia_spmv "
@@ -2752,7 +2945,8 @@ def device_setups(n, counters, s3_setup_s):
     paths["structured_device"] = launches["device"]
     paths["structured_host"] = launches["host"]
     expect_launches("structured device", launches["device"],
-                    ("const_stencil", "dia_spmv", "grid_transfer"))
+                    ("const_stencil", "dia_spmv", "grid_transfer",
+                     "pcg_update"))
     if runs["device"]["setup_launches"]["dia_spmv"] == 0:
         raise AssertionError("structured device setup: λmax did not run "
                              "dia_spmv")
@@ -2823,7 +3017,7 @@ def device_setups(n, counters, s3_setup_s):
         "aniso9pt_256_eps1e-3 flavor=device", op, amg.AMGParams(), grid,
         counters, flavor="device")
     expect_launches("aniso device", paths["aniso_device"],
-                    ("dia_spmv", "grid_transfer"))
+                    ("dia_spmv", "grid_transfer", "pcg_update"))
     axes0 = solver.hierarchy.levels[0].p.coarsened
     info = run["info"]
     print(f"aniso9pt_256_eps1e-3 device: L0 axes={axes0} inner="
@@ -2868,7 +3062,8 @@ def device_setups(n, counters, s3_setup_s):
     if any(max(d) > 4 for d in built):
         raise AssertionError(f"cli device-only: host planes built {built}")
     expect_launches("cli device-only", paths["cli_device_only"],
-                    ("const_stencil", "dia_spmv", "grid_transfer"))
+                    ("const_stencil", "dia_spmv", "grid_transfer",
+                     "pcg_update"))
 
     # 15e: GPU/CPU parity of both device flavors
     m = DEVICE_PARITY_N
@@ -2908,7 +3103,7 @@ def rank_main(args) -> int:
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops import (
         const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        panel_spmm, remote_halo,
+        panel_spmm, pcg_update, remote_halo,
     )
     from omp_amg_tpu_torch.parallel.multihost import (
         global_mesh, maybe_initialize,
@@ -2924,7 +3119,7 @@ def rank_main(args) -> int:
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
                 "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer}
+                "grid_transfer": grid_transfer, "pcg_update": pcg_update}
     n = args.n
     a = amg.poisson3d_7pt(n)
     b = amg.default_rhs(a, seed=SEED)
@@ -3264,14 +3459,14 @@ def main() -> int:
     from omp_amg_tpu_torch import _build, native
     from omp_amg_tpu_torch.ops import (
         const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        panel_spmm, remote_halo,
+        panel_spmm, pcg_update, remote_halo,
     )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
                 "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer}
+                "grid_transfer": grid_transfer, "pcg_update": pcg_update}
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -3301,7 +3496,8 @@ def main() -> int:
     # profile of one warm solve
     solver, pmis_launches, host_run = drive(f"pmis n={args.n}^3", a, pmis,
                                             None, counters)
-    expect_launches("pmis", pmis_launches, ("dia_spmv", "csr_spmv"))
+    expect_launches("pmis", pmis_launches,
+                    ("dia_spmv", "csr_spmv", "pcg_update"))
     if pmis_launches["dia_spmv"] == host_run["scalar"]["dia_spmv"]:
         raise AssertionError("pmis: dia_spmv never took its vector path")
     for mod in counters.values():
@@ -3328,7 +3524,8 @@ def main() -> int:
     solver, probe_launches, probe_run = drive(f"pmis probe n={args.n}^3", a,
                                               probe, None, counters)
     expect_launches("pmis probe", probe_launches,
-                    ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes"))
+                    ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes",
+                     "pcg_update"))
     same_probe_values("pmis probe", solver, host)
     hi, pi = host_run["info"], probe_run["info"]
     print(f"pmis probe vs host n={args.n}^3: setup_s "
@@ -3361,6 +3558,11 @@ def main() -> int:
     # phase 6a: grid_transfer kernel checks
     rows["grid_transfer"] = grid_transfer_checks(rng, flush)
 
+    # phase 6b: pcg_update kernel checks; 6c: captured solves against the
+    # where-form step on the cells' 256³ paths
+    rows["pcg_update"] = pcg_update_checks(rng, flush)
+    pcg_where_form_checks(counters)
+
     def banded_checks(tag, lv):
         dts = [torch.float32]
         if bf16_lossless(lv.a.data.float().cpu().numpy()):
@@ -3371,7 +3573,8 @@ def main() -> int:
     solver, s3_launches, s3_run = drive(f"structured n={args.n}^3", a,
                                    amg.AMGParams(), (args.n,) * 3, counters)
     expect_launches("structured 3D", s3_launches,
-                    ("const_stencil", "dia_spmv", "grid_transfer"))
+                    ("const_stencil", "dia_spmv", "grid_transfer",
+                     "pcg_update"))
     for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
         banded_checks(f"S3-L{l}-A", lv)
     del solver
@@ -3382,7 +3585,7 @@ def main() -> int:
     solver, s2_launches, s2_run = drive(f"structured 2D n={N2D}^2", a2,
                                    amg.AMGParams(), (N2D, N2D), counters)
     expect_launches("structured 2D", s2_launches,
-                    ("dia_spmv", "grid_transfer"))
+                    ("dia_spmv", "grid_transfer", "pcg_update"))
     if s2_run["scalar"]["dia_spmv"] in (0, s2_launches["dia_spmv"]):
         raise AssertionError("structured 2D: dia_spmv did not launch both "
                              f"paths ({s2_run['scalar']['dia_spmv']} scalar "
@@ -3484,7 +3687,8 @@ def main() -> int:
           f"remote_halo:L0:d={SHARDS} (the windows; cross_process: the "
           f"window of phase 16b's L0 on each rank, through CUDA IPC) and "
           f"grid_transfer:{TRANSFER_N}^3:restrict:f32 (modes: all three "
-          f"f32 rows) with a cold L2; "
+          f"f32 rows) and pcg_update:{PCG_N}^3:xr:f32 (modes: xr and p, "
+          f"f32 and f64) with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -3520,6 +3724,11 @@ def main() -> int:
              modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us")}
                     for r in rows["grid_transfer"]
                     if r["name"].endswith(":f32")]),
+        dict(summary("pcg_update", "omp_amg_tpu_torch/csrc/pcg_update.cu",
+                     "none (the reference's PCG updates are not Pallas)",
+                     f"pcg_update:{PCG_N}^3:xr:f32"),
+             modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us")}
+                    for r in rows["pcg_update"]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -148,6 +148,9 @@ def cuda_kernels() -> ctypes.CDLL:
                                              + [i32, i32, i32] + [i64] * 4
                                              + [p] * 4)
         lib.grid_transfer_launch.restype = i32
+        # kind, f64, n, max_blocks, active, scalar, u, v, s, t, stream
+        lib.pcg_update_launch.argtypes = [i32, i32, i64, i64] + [p] * 7
+        lib.pcg_update_launch.restype = i32
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32

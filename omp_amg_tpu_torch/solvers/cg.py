@@ -4,12 +4,13 @@
 Each variant is a start step and an iteration step over a device state
 (:mod:`.graph`): every scalar, the iteration counter, the exit flag and the
 residual history stay on the device. Standard PCG forms α, β and the
-residual norm there; the pipelined (single-reduction) PCG forms γ, δ and
-‖r‖² at one point per iteration and α, β from them as f32 device scalars,
-the IEEE f32 operations of the reference's traced scalars
-(``omp_amg_tpu/solvers/cg.py:107-108``), in the order the host loop of
-earlier versions computed them in numpy float32, so the iterates are bit
-for bit that loop's.
+residual norm there and, on one device, updates x, r and p in place
+through two kernels (:mod:`..ops.pcg_update`); the pipelined
+(single-reduction) PCG forms γ, δ and ‖r‖² at one point per iteration and
+α, β from them as f32 device scalars, the IEEE f32 operations of the
+reference's traced scalars (``omp_amg_tpu/solvers/cg.py:107-108``), in the
+order the host loop of earlier versions computed them in numpy float32, so
+the iterates are bit for bit that loop's.
 
 ``amg_pcg`` and ``cg`` run the captured blocks of :mod:`.graph` on CUDA
 (``graph=True``, the default: CUDA graphs cached on the hierarchy, or on
@@ -28,6 +29,7 @@ import torch
 
 from ..amg.hierarchy import Hierarchy
 from ..amg.vcycle import vcycle
+from ..ops import pcg_update
 from ..ops.spmv import spmv
 from ..ops.vecops import axpy, dot
 from . import graph as G
@@ -60,39 +62,57 @@ def standard_program(apply_a, precond: Callable, maxiter: int, *,
     ``apply_a`` and ``precond``; ``dot``, ``norm`` and ``vmap`` (per-vector
     maps) are the single-device ones or, sharded, the shard-order ones of
     :mod:`..parallel.dist`. The exit test is the reference's f32
-    ‖r‖ > tol·‖b‖."""
+    ‖r‖ > tol·‖b‖.
+
+    On tensors the step updates the state's x, r and p in place through
+    :mod:`..ops.pcg_update` (the kernel on the card), masked by the step's
+    entry flag, so the start gives the state buffers of its own. Per-shard
+    lists keep the where-form: new vectors, selected by
+    ``torch.where(active, new, old)``."""
 
     def start(b, tol, x0):
         if x0 is None:
             x, r = vmap(torch.zeros_like, b), vmap(torch.clone, b)
         else:
-            x = x0
+            x = vmap(torch.clone, x0)
             r = vmap(torch.sub, b, apply_a(x0))
         bnorm = G.guard(norm(b))
         z = precond(r)
         rnorm = norm(r)
         hist, k = G.new_history(maxiter, rnorm)
         thr = tol * bnorm
-        return dict(x=x, r=r, z=z, p=z, rz=dot(r, z), k=k,
+        return dict(x=x, r=r, p=vmap(torch.clone, z), rz=dot(r, z), k=k,
                     active=(rnorm > thr) & (k < maxiter), hist=hist,
                     thr=thr, bnorm=bnorm)
 
     def step(st, masked):
-        sel = G.selector(st["active"], masked)
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        sel = G.selector(st["active"], masked)
+        flag = st["active"] if masked else None
+        shards = isinstance(x, list)
         q = apply_a(p)
         alpha = rz / dot(p, q)
-        x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
-        r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
+        if shards:
+            x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
+            r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
+        else:
+            pcg_update.xr(x, r, p, q, alpha, flag)
+            x_n, r_n = x, r
         z_n = precond(r_n)
         rz_n = dot(r_n, z_n)
         beta = rz_n / rz
-        p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
+        if shards:
+            p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
+        else:
+            pcg_update.p_update(p, z_n, beta, flag)
+            p_n = p
         rnorm = norm(r_n)
         k, active = G.advance(st, maxiter, rnorm > st["thr"])
         G.record(st["hist"], k, rnorm, st["active"])
-        return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
-                    p=sel(p_n, p), rz=sel(rz_n, rz), k=k, active=active)
+        if shards:
+            x_n, r_n, p_n = sel(x_n, x), sel(r_n, r), sel(p_n, p)
+        return dict(st, x=x_n, r=r_n, p=p_n, rz=sel(rz_n, rz), k=k,
+                    active=active)
 
     def finish(st):
         k, history, bnorm = host_copy(st, "bnorm")

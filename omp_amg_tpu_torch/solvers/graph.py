@@ -11,12 +11,14 @@ dict of device tensors, or of per-shard lists of them):
   threshold formed from the f32 tolerance tensor ``tol`` and ‖b‖ (zero-b
   guarded), all on the device;
 - ``step(state, masked)``: one iteration. With ``masked=True`` every update
-  is ``torch.where(active, new, old)``, ``k`` grows only while active, the
-  history entry is written at a device index, and ``active`` is recomputed
-  from the variant's own exit test and ``k < maxiter``; an iteration run
-  after the exit (a *frozen* one) launches its kernels and changes nothing.
-  With ``masked=False`` (the caller knows the state is active) the vector
-  and scalar updates are plain;
+  keeps the old value where the step's entry ``active`` is false (a
+  ``torch.where(active, new, old)``, or, for the standard PCG's vectors on
+  one device, an in-place kernel that then writes nothing), ``k`` grows
+  only while active, the history entry is written at a device index, and
+  ``active`` is recomputed from the variant's own exit test and ``k <
+  maxiter``; an iteration run after the exit (a *frozen* one) launches its
+  kernels and changes nothing. With ``masked=False`` (the caller knows the
+  state is active) the vector and scalar updates are plain;
 - ``finish(state)``: one host copy of ``k``, the history and the scalars of
   the result, and the :class:`~.cg.CGResult`.
 
@@ -64,7 +66,7 @@ import torch
 
 from ..ops import (
     const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-    panel_spmm, remote_halo,
+    panel_spmm, pcg_update, remote_halo,
 )
 from ..utils.trace import span
 
@@ -78,7 +80,7 @@ from ..utils.trace import span
 BLOCK = 4
 
 COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-            panel_spmm, remote_halo)
+            panel_spmm, pcg_update, remote_halo)
 
 
 class Program(NamedTuple):

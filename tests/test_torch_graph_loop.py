@@ -14,6 +14,10 @@ block loop:
   number of iterations;
 - ``maxiter`` reached inside a block stops the count there; b = 0 takes no
   iteration;
+- standard PCG and ``cg``, whose vectors the step updates in place
+  (``ops/pcg_update.py``), give bit for bit the where-form step of earlier
+  versions (kept here as an oracle), on both loops, from x = 0 and from a
+  given x0; the caller's x0 is left as it was;
 - a refresh drops the graphs cached on the hierarchy it replaces.
 
 The capture itself needs the card: ``tests/test_torch_cuda.py``.
@@ -38,6 +42,7 @@ from omp_amg_tpu_torch.parallel.dist import (
     _pdots, dist_spmv, dist_vcycle, make_dist_solver, pdot, pnorm,
 )
 from omp_amg_tpu_torch.solvers import graph as G
+from omp_amg_tpu_torch.solvers.cg import CGResult, host_copy
 
 torch.set_num_threads(2)
 
@@ -210,6 +215,55 @@ def _host_dist_pcg_pipelined(dh, b, tol, maxiter):
     return x, k, float(rnorm / np.sqrt(bnorm2)), history
 
 
+def _where_form_program(apply_a, precond, maxiter):
+    """The standard PCG steps of earlier versions on one device: every
+    vector update a new tensor (a multiply by the 0-dim scalar and an add),
+    selected by ``torch.where(active, new, old)``, and z kept in the
+    state."""
+    def start(b, tol, x0):
+        if x0 is None:
+            x, r = torch.zeros_like(b), b.clone()
+        else:
+            x, r = x0, b - apply_a(x0)
+        bnorm = G.guard(torch.linalg.vector_norm(b))
+        z = precond(r)
+        rnorm = torch.linalg.vector_norm(r)
+        hist, k = G.new_history(maxiter, rnorm)
+        thr = tol * bnorm
+        return dict(x=x, r=r, z=z, p=z, rz=torch.dot(r, z), k=k,
+                    active=(rnorm > thr) & (k < maxiter), hist=hist,
+                    thr=thr, bnorm=bnorm)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
+        q = apply_a(p)
+        alpha = rz / torch.dot(p, q)
+        x_n = x + alpha * p
+        r_n = r - alpha * q
+        z_n = precond(r_n)
+        rz_n = torch.dot(r_n, z_n)
+        beta = rz_n / rz
+        p_n = z_n + beta * p
+        rnorm = torch.linalg.vector_norm(r_n)
+        k, active = G.advance(st, maxiter, rnorm > st["thr"])
+        G.record(st["hist"], k, rnorm, st["active"])
+        return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
+                    p=sel(p_n, p), rz=sel(rz_n, rz), k=k, active=active)
+
+    def finish(st):
+        k, history, bnorm = host_copy(st, "bnorm")
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(history[-1] / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
+
+
+class _Owner:
+    """Holds the where-form runners' cache (``G.run``'s owner)."""
+
+
 def _same_as_host(res, host):
     x, k, rel, history = host
     assert res.iters == k
@@ -244,6 +298,44 @@ def test_serial_loop_bitwise_host_scalar_loop(serial, variant):
     oracle = _host_pcg_pipelined if variant == "pipelined" else _host_pcg
     _same_as_host(_serial_solve(variant, hier, b, graph=False),
                   oracle(a, b, precond, TOL, 500))
+
+
+def _x0(b):
+    return torch.from_numpy(
+        np.random.default_rng(3).standard_normal(b.numel())).to(b.dtype)
+
+
+@pytest.mark.parametrize("start", ["zero", "x0"])
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("variant", ["standard", "cg"])
+def test_serial_bitwise_where_form_step(serial, monkeypatch, variant, graph,
+                                        start):
+    """The in-place updates give the where-form step's count, history and x
+    bit for bit, on blocks of 3 (frozen iterations at the end) and on the
+    per-iteration loop."""
+    hier, b = serial
+    a = hier.levels[0].a
+    precond = ((lambda r: r) if variant == "cg"
+               else (lambda r: port.vcycle(hier, r)))
+    x0 = None if start == "zero" else _x0(b)
+    monkeypatch.setattr(G, "BLOCK", 3)
+    want = G.run(_where_form_program(lambda v: spmv(a, v), precond, 500),
+                 b, TOL, x0, graph=graph, owner=_Owner(), key=variant)
+    got = _serial_solve(variant, hier, b, graph=graph, x0=x0)
+    assert got.iters > 3
+    _same(want, got)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("variant", ["standard", "pipelined", "cg"])
+def test_x0_left_unchanged(serial, variant, graph):
+    hier, b = serial
+    x0 = _x0(b)
+    kept = x0.clone()
+    res = _serial_solve(variant, hier, b, graph=graph, x0=x0)
+    assert res.iters > 0
+    assert torch.equal(x0, kept)
+    assert res.x.data_ptr() != x0.data_ptr()
 
 
 # --- shards ----------------------------------------------------------------
