@@ -46,10 +46,11 @@ Phases (each raises on failure, so the exit code is non-zero):
 6b. ``pcg_update`` kernel checks: ``xr`` and ``p`` on 256³ vectors in f32
    and f64 against the where-form twin, bit for bit, a false flag writing
    nothing, each timed beside its bound and the twin;
-6c. one captured ``amg_pcg`` solve on the PMIS and the structured 256³
-   paths against the where-form step the kernel replaced, captured the
-   same way: count, history and x bit for bit, 2 ``pcg_update`` launches
-   per executed iteration, both solves timed (where-form, kernel, kernel,
+6c. one captured standard PCG solve on the PMIS and the structured 256³
+   paths and on the 256³ z-slab path over ``SHARDS`` shards of the card
+   against the where-form step the kernel replaced, captured the same way:
+   count, history and x bit for bit, 2 ``pcg_update`` launches per shard
+   and executed iteration, both solves timed (where-form, kernel, kernel,
    where-form) and profiled;
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
    grid=(n,)*3, device="cuda").solve(b, tol=1e-8)``; then ``dia_spmv``
@@ -775,24 +776,29 @@ def pcg_update_checks(rng, flush):
     return rows
 
 
-def where_form_program(apply_a, precond, maxiter):
-    """The standard PCG steps as they ran on one device before the PCG
-    update kernel: every vector update a new tensor (a multiply by the
-    0-dim scalar and an add), selected by ``torch.where(active, new,
-    old)``, z kept in the state."""
+def where_form_program(apply_a, precond, maxiter, dot=None, norm=None):
+    """The standard PCG steps as they ran before the PCG update kernel:
+    every vector update a new tensor (a multiply by the 0-dim scalar and an
+    add), per shard on shard lists, selected by ``torch.where(active, new,
+    old)``, z kept in the state. ``dot`` and ``norm``: the shard-order ones
+    on shard lists (default: one device's)."""
     import torch
 
     from omp_amg_tpu_torch.solvers import graph as G
     from omp_amg_tpu_torch.solvers.cg import CGResult, host_copy
 
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
+    vmap = G.vmap
+
     def start(b, tol, x0):
-        x, r = torch.zeros_like(b), b.clone()
-        bnorm = G.guard(torch.linalg.vector_norm(b))
+        x, r = vmap(torch.zeros_like, b), vmap(torch.clone, b)
+        bnorm = G.guard(norm(b))
         z = precond(r)
-        rnorm = torch.linalg.vector_norm(r)
+        rnorm = norm(r)
         hist, k = G.new_history(maxiter, rnorm)
         thr = tol * bnorm
-        return dict(x=x, r=r, z=z, p=z, rz=torch.dot(r, z), k=k,
+        return dict(x=x, r=r, z=z, p=z, rz=dot(r, z), k=k,
                     active=(rnorm > thr) & (k < maxiter), hist=hist,
                     thr=thr, bnorm=bnorm)
 
@@ -800,14 +806,14 @@ def where_form_program(apply_a, precond, maxiter):
         sel = G.selector(st["active"], masked)
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
         q = apply_a(p)
-        alpha = rz / torch.dot(p, q)
-        x_n = x + alpha * p
-        r_n = r - alpha * q
+        alpha = rz / dot(p, q)
+        x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
+        r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
         z_n = precond(r_n)
-        rz_n = torch.dot(r_n, z_n)
+        rz_n = dot(r_n, z_n)
         beta = rz_n / rz
-        p_n = z_n + beta * p
-        rnorm = torch.linalg.vector_norm(r_n)
+        p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
+        rnorm = norm(r_n)
         k, active = G.advance(st, maxiter, rnorm > st["thr"])
         G.record(st["hist"], k, rnorm, st["active"])
         return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
@@ -827,11 +833,13 @@ class _Owner:
 
 
 def pcg_where_form_checks(counters):
-    """Phase 6c: one captured standard PCG solve (``amg_pcg``, to
-    ``PCG_TOL``) on the benchmark cells' two 256³ paths, PMIS (host setup)
-    and structured (device setup), against the where-form step the kernel
-    replaced (:func:`where_form_program`) captured the same way: count, history and
-    x bit for bit; ``pcg_update`` launches 2 per executed iteration of a
+    """Phase 6c: one captured standard PCG solve (to ``PCG_TOL``) on the
+    benchmark cells' two 256³ paths, PMIS (host setup) and structured
+    (device setup), through ``amg_pcg``, and on the z-slab path over
+    ``SHARDS`` shards of the card, through ``make_dist_solver``, against
+    the where-form step the kernel replaced (:func:`where_form_program`)
+    captured the same way: count, history and x bit for bit;
+    ``pcg_update`` launches 2 per shard and executed iteration of a
     replayed solve (frozen ones included) and the where-form none; both
     solves timed (CUDA events, warm, median of 5) and profiled."""
     import statistics
@@ -840,27 +848,49 @@ def pcg_where_form_checks(counters):
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops.spmv import spmv
+    from omp_amg_tpu_torch.parallel.dist import (
+        dist_spmv, dist_vcycle, make_dist_solver, pdot, pnorm,
+    )
     from omp_amg_tpu_torch.solvers import graph as G
 
     a = amg.poisson3d_7pt(PCG_N)
-    for label, params, grid, flavor in (
-            ("pmis", amg.AMGParams(coarsening="pmis"), None, "host"),
-            ("structured", amg.AMGParams(), (PCG_N,) * 3, "device")):
+    cube = (PCG_N,) * 3
+    for label, params, grid, flavor, shards in (
+            ("pmis", amg.AMGParams(coarsening="pmis"), None, "host", 0),
+            ("structured", amg.AMGParams(), cube, "device", 0),
+            (f"z-slab d={SHARDS}", amg.AMGParams(), cube, "host", SHARDS)):
         tag = f"pcg where-form {label} n={PCG_N}^3"
-        hier = amg.amg_setup(a, params, device="cuda", grid=grid,
-                             flavor=flavor)
         b = amg.default_rhs(a, seed=SEED).to("cuda")
-        a0 = hier.levels[0].a
         owner = _Owner()
-        program = where_form_program(lambda v: spmv(a0, v),
-                                     lambda r: amg.vcycle(hier, r), 100)
+        if shards:
+            solver = amg.AMGSolver(a, params, grid=grid, device="cuda",
+                                   mesh=amg.ShardMesh(shards, "cuda"),
+                                   transport="remote")
+            hier, b = solver.hierarchy, solver.mesh.shard(b)
+            a0 = hier.levels[0].a
+            program = where_form_program(
+                lambda v: dist_spmv(a0, v, shards),
+                lambda r: dist_vcycle(hier, r), 100,
+                dot=lambda u, v: pdot(u, v, hier.mesh),
+                norm=lambda u: pnorm(u, hier.mesh))
+            solve = make_dist_solver(solver.mesh, hier, tol=PCG_TOL,
+                                     maxiter=100)
+
+            def kernel():
+                return solve(hier, b)
+        else:
+            hier = amg.amg_setup(a, params, device="cuda", grid=grid,
+                                 flavor=flavor)
+            a0 = hier.levels[0].a
+            program = where_form_program(lambda v: spmv(a0, v),
+                                         lambda r: amg.vcycle(hier, r), 100)
+
+            def kernel():
+                return amg.amg_pcg(a0, b, hier, tol=PCG_TOL, maxiter=100)
 
         def where_form():
             return G.run(program, b, PCG_TOL, None, owner=owner,
                          key="where-form", keep=(a0,))
-
-        def kernel():
-            return amg.amg_pcg(a0, b, hier, tol=PCG_TOL, maxiter=100)
         where_form(), kernel()       # the captures
         torch.cuda.synchronize()
         reset_counters(counters)
@@ -872,8 +902,11 @@ def pcg_where_form_checks(counters):
         torch.cuda.synchronize()
         theirs = {k: m.launches for k, m in counters.items()}
         blocks = -(-max(got.iters, 1) // G.BLOCK)
+        expect = 2 * max(shards, 1) * G.BLOCK * blocks
+        xs = got.x if shards else [got.x]
+        ws = want.x if shards else [want.x]
         same = (got.iters == want.iters and got.history == want.history
-                and torch.equal(got.x, want.x))
+                and all(torch.equal(u, v) for u, v in zip(xs, ws)))
         ms = {}
         for side, fn in (("where", where_form), ("kernel", kernel),
                          ("kernel2", kernel), ("where2", where_form)):
@@ -881,11 +914,12 @@ def pcg_where_form_checks(counters):
                 cuda_ms(fn, reps=1, warm=0) for _ in range(5))
         print(f"{tag}: iters={got.iters} (where-form {want.iters}) history "
               f"and x bitwise the where-form's: {same}; pcg_update launches "
-              f"{mine['pcg_update']} (2 x {G.BLOCK} x {blocks} blocks), "
-              f"where-form {theirs['pcg_update']}; solve ms (events, median "
-              f"of 5, where-form/kernel/kernel/where-form) "
-              f"{ms['where']:.3f} {ms['kernel']:.3f} {ms['kernel2']:.3f} "
-              f"{ms['where2']:.3f}", flush=True)
+              f"{mine['pcg_update']} (2 x {max(shards, 1)} shards x "
+              f"{G.BLOCK} x {blocks} blocks), where-form "
+              f"{theirs['pcg_update']}; solve ms (events, median of 5, "
+              f"where-form/kernel/kernel/where-form) {ms['where']:.3f} "
+              f"{ms['kernel']:.3f} {ms['kernel2']:.3f} {ms['where2']:.3f}",
+              flush=True)
         if not same:
             print(f"history {tag} kernel: "
                   + " ".join(f"{h:.9e}" for h in got.history), flush=True)
@@ -893,11 +927,10 @@ def pcg_where_form_checks(counters):
                   + " ".join(f"{h:.9e}" for h in want.history), flush=True)
             raise AssertionError(f"{tag}: the captured solve differs from "
                                  "the where-form's")
-        if mine["pcg_update"] != 2 * G.BLOCK * blocks or \
-                theirs["pcg_update"] != 0:
+        if mine["pcg_update"] != expect or theirs["pcg_update"] != 0:
             raise AssertionError(f"{tag}: pcg_update launched "
                                  f"{mine['pcg_update']} times (expected "
-                                 f"{2 * G.BLOCK * blocks}), the where-form "
+                                 f"{expect}), the where-form "
                                  f"{theirs['pcg_update']}")
         profile_solve(f"{tag} kernel", None, None, run=kernel)
         profile_solve(f"{tag} where-form", None, None, run=where_form)
@@ -1318,7 +1351,8 @@ def sharded_path(n, counters, flush, rng):
         transport="remote")
     print(f"sharded d={SHARDS} stats={solver.stats()}", flush=True)
     expect_launches("sharded", launches,
-                    ("dia_spmv", "remote_halo", "grid_transfer"))
+                    ("dia_spmv", "remote_halo", "grid_transfer",
+                     "pcg_update"))
     info = run["info"]
     runs = {"remote": run}
     for label, mesh, transport in (
@@ -1776,6 +1810,8 @@ def option_paths(n, counters):
                   flush=True)
             check_certified(label, info, rel)
             if name == "pipelined":
+                if not launches["pcg_update"]:
+                    raise AssertionError(f"{label}: no pcg_update launch")
                 extra = sum(info["inner_iters"]) - sum(dev["inner_iters"])
                 if not 0 <= extra <= 1:
                     histories(f"{tag} standard", dev)
@@ -1820,7 +1856,8 @@ def sharded_variants(n, counters):
             infos[d] = run["info"]
             if d == SHARDS:
                 expect_launches(label, launches,
-                                ("dia_spmv", "remote_halo", "grid_transfer"))
+                                ("dia_spmv", "remote_halo", "grid_transfer",
+                                 "pcg_update"))
                 paths[f"sharded_{name}"] = launches
             del solver
         four, one = infos[SHARDS], infos[1]
@@ -2272,7 +2309,8 @@ def pmis_mesh_path(n, counters, flush, rng):
     solver, launches, run = drive(label, a, pmis, None, counters,
                                   vcycle=precondition, mesh=mesh,
                                   transport="remote", refreshable=True)
-    expect_launches(label, launches, ("csr_spmv", "remote_halo"))
+    expect_launches(label, launches,
+                    ("csr_spmv", "remote_halo", "pcg_update"))
     paths["pmis_mesh"] = launches
     dh = solver.hierarchy
     print(f"{label} stats={solver.stats()} modes="
@@ -3342,8 +3380,10 @@ def process_mesh_paths(n, pm_run, sh_run):
                         raise AssertionError(f"{label}: graph_stats does "
                                              "not report the eager loop")
                 check_certified(label, dict(rel_residual=r0["rel"]), rel)
-                used = ({"csr_spmv", "remote_halo"} if kind == "pmis"
-                        else {"dia_spmv", "remote_halo", "grid_transfer"})
+                used = ({"csr_spmv", "remote_halo", "pcg_update"}
+                        if kind == "pmis" else
+                        {"dia_spmv", "remote_halo", "grid_transfer",
+                         "pcg_update"})
                 if t == "ppermute":
                     used -= {"remote_halo"}
                 expect_launches(label, launches, used)

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import collections
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +66,11 @@ from ..sparse.formats import (
 from ..utils.device import resolve_device
 from ..utils.trace import SetupTrace
 from .params import AMGParams
-from .structured import GridProlong, GridRestrict
+from .comb_rap import comb_rap_device, dia_apply, structured_rap
+from .structured import (
+    GridProlong, GridRestrict, prolong_to_scipy, strong_axes,
+    strong_axes_from_values,
+)
 
 BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
 
@@ -288,7 +292,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     strength, the C/F split and direct interpolation (only: other
     ``interp`` values warn and use it) on the device and keeps the Galerkin
     product on the host; the device structured setup keeps every level's
-    operator on the device (:func:`_amg_setup_structured_device`).
+    operator on the device (:func:`_amg_setup_structured`).
 
     ``grid`` (extents, C order) enables the structured coarsening for
     tensor-grid stencil operators. Selection follows ``params.coarsening``,
@@ -335,10 +339,8 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     device = resolve_device(device)
     tune_malloc()   # setup temporaries recycle heap pages (see memtune)
     if structured:
-        setup = (_amg_setup_structured_device if flavor == "device"
-                 else _amg_setup_structured)
-        return setup(a, tuple(int(g) for g in grid), params, device,
-                     keep_host)
+        return _amg_setup_structured(a, tuple(int(g) for g in grid), params,
+                                     device, keep_host, _STRUCTURED[flavor])
     if flavor == "device":
         return _amg_setup_pmis_device(a, params, device, keep_host)
 
@@ -595,35 +597,22 @@ def _estimate_lmax_apply(apply_fn, dinv: np.ndarray, n: int,
 
 
 def _amg_setup_structured(a, dims, params: AMGParams, device,
-                          keep_host: bool):
-    """Structured setup: semicoarsen the strong axes, grid transfers,
-    Galerkin RAP on f64 numpy DIA planes (:func:`comb_rap.structured_rap`;
-    the exact sparse product only when its probe rejects the radius-1
-    contract). λmax runs in float32 on the f32 planes, through the native
-    kernel from 2¹⁸ rows (as the reference: it sets ω, hence the iteration
-    counts)."""
-    import scipy.sparse as sp
-
-    from .. import native
-    from ..ops.rap import galerkin_product
-    from . import comb_rap as cr
-    from .structured import prolong_to_scipy, strong_axes
-
-    if isinstance(a, Dia):
-        offsets = list(a.offsets)
-        data = np.asarray(_numpy(a.data), dtype=np.float64)
-        a_sp = fine_host_operator(a) if keep_host else None
-    else:
-        a_sp = sp.csr_matrix(a, dtype=np.float64)
-        offsets, data = dia_planes_from_scipy(a_sp)
-    host = HostSetup(ops=[a_sp], states=[], p=[])
+                          keep_host: bool, steps: _StructuredSteps):
+    """Structured setup: semicoarsen the strong axes, grid transfers, the
+    Galerkin planes, dinv from the centre plane (or the l1 sums) and λmax,
+    and the form by :func:`_structured_form`, level by level. ``steps`` is
+    the flavor (:data:`_STRUCTURED`): where the planes live and what
+    computes the axes, the Galerkin planes and λmax."""
+    offsets, data = steps.planes(a, device)
+    host = HostSetup(ops=[fine_host_operator(a) if keep_host else None],
+                     states=[], p=[])
     levels = []
     trace = SetupTrace()
     n = int(np.prod(dims))
     while n > params.coarse_size and len(levels) < params.max_levels - 1:
         k = len(levels)
         with trace.phase(f"L{k} n={n} strength/axes"):
-            axes = strong_axes((offsets, data), dims, params.theta)
+            axes = steps.axes(offsets, data, dims, params.theta)
         if not any(axes):
             break
         coarse_dims = tuple((d + 1) // 2 if c else d
@@ -632,44 +621,27 @@ def _amg_setup_structured(a, dims, params: AMGParams, device,
                         coarsened=axes)
         r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
                          coarsened=axes)
-        with trace.phase(f"L{k} RAP"):
-            try:
-                offs_c, data_c = cr.structured_rap(offsets, data, dims,
-                                                   coarse_dims, axes)
-            except ValueError:
-                # operator outside the radius-1 contract → exact sparse
-                # product
-                cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
-                offs_c, data_c = dia_planes_from_scipy(
-                    galerkin_product(cur_sp, prolong_to_scipy(p)))
+        with trace.phase(f"L{k} RAP") as ph:
+            offs_c, data_c = steps.rap(ph, offsets, data, dims, coarse_dims,
+                                       axes, p)
         with trace.phase(f"L{k} lmax"):
-            if params.smoother == "l1jacobi":
-                # out-of-range taps are stored as exact zeros: the row l1
-                # norm is a plane-wise |·| sum
-                dinv = 1.0 / np.abs(data).sum(axis=0)
-            else:
-                dinv = 1.0 / data[offsets.index(0)]
-            data_f = np.ascontiguousarray(data, np.float32)
-            if n >= (1 << 18) and native.available():
-                def apply_fn(v):
-                    return native.dia_apply(offsets, data_f, v)
-            else:   # small levels: the per-call OpenMP spawn outweighs it
-                def apply_fn(v):
-                    return cr.dia_apply(offsets, data_f, v)
-            lmax = _estimate_lmax_apply(apply_fn, dinv, n, dtype=np.float32)
+            # out-of-range taps are stored as exact zeros: the row l1 norm
+            # is a plane-wise |·| sum
+            dinv = 1.0 / (abs(data).sum(0) if params.smoother == "l1jacobi"
+                          else data[offsets.index(0)])
+            cur, lmax = steps.lmax(offsets, data, dims, dinv)
         with trace.phase(f"L{k} operator form") as ph:
-            a_lvl = _structured_form(Dia(data=data_f, offsets=tuple(offsets),
-                                         dims=dims), params, device, k)
+            a_lvl = _structured_form(cur, params, device, k)
             ph.label += f" ({type(a_lvl).__name__})"
         levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
-        offsets, data, dims = offs_c, np.asarray(data_c), coarse_dims
+        offsets, data, dims = offs_c, data_c, coarse_dims
         n = int(np.prod(dims))
         if keep_host:
             host.ops.append(dia_to_scipy(Dia(data=data,
                                              offsets=tuple(offsets))))
 
     hier = _finish(levels, _dense_from_planes(offsets, data, n), params,
-                   device, ("host",) * len(levels))
+                   device, (steps.engine,) * len(levels))
     return (hier, host) if keep_host else hier
 
 
@@ -695,7 +667,7 @@ def _structured_form(a: Dia, params: AMGParams, device, level: int):
 
 def _dense_from_planes(offsets, data, n: int) -> np.ndarray:
     """The coarsest operator densified from its diagonals (f64 host)."""
-    data = np.asarray(data, np.float64)
+    data = np.asarray(_numpy(data), np.float64)
     dense = np.zeros((n, n), dtype=np.float64)
     for k, off in enumerate(offsets):
         i0, i1 = max(0, -off), min(n, n - off)
@@ -705,77 +677,101 @@ def _dense_from_planes(offsets, data, n: int) -> np.ndarray:
     return dense
 
 
-def _diag_stats(data: torch.Tensor):
-    """(per-diagonal mean of the nonzeros, their count): the only per-level
-    statistics the device structured setup reads on the host."""
-    counts = (data != 0).sum(dim=1)
-    return data.sum(dim=1) / counts.clamp_min(1), counts
+class _StructuredSteps(NamedTuple):
+    """The steps in which the structured setup's flavors differ; its level
+    loop (:func:`_amg_setup_structured`) owns the rest."""
+    planes: Callable    # (a, device) -> the fine operator's (offsets, planes)
+    axes: Callable      # (offsets, planes, dims, theta) -> strong axes
+    rap: Callable       # (phase, offsets, planes, dims, coarse_dims, axes,
+                        #  p) -> the Galerkin (offsets, planes)
+    lmax: Callable      # (offsets, planes, dims, dinv) -> (the level's f32
+                        #  Dia, λmax)
+    engine: str         # the Galerkin product's name in ``rap_engines``
 
 
-def _amg_setup_structured_device(a, dims, params: AMGParams, device,
-                                 keep_host: bool):
-    """The structured setup with every level's operator on the device (the
-    reference's ``flavor="device"``): the axes from the per-diagonal means
-    (:func:`_diag_stats`, :func:`.structured.strong_axes_from_values`), the
-    Galerkin RAP by :func:`.comb_rap.comb_rap_device`, dinv from the centre
-    plane (or the l1 sums), λmax by power iteration through the DIA kernel
-    on the f32 planes, and the form by :func:`_structured_form` on the
-    device planes. Only the O(ndiag) statistics, the constant-stencil
-    coefficients and the coarsest operator reach the host, and with
-    ``keep_host=True`` each level's planes, pulled to scipy as the host
-    setup keeps them."""
-    from . import comb_rap as cr
-    from .smoothers import estimate_lmax
-    from .structured import strong_axes_from_values
+def _host_planes(a, device):
+    """f64 numpy planes of a ``Dia``, or of a scipy matrix's diagonals."""
+    import scipy.sparse as sp
 
+    if isinstance(a, Dia):
+        return list(a.offsets), np.asarray(_numpy(a.data), dtype=np.float64)
+    return dia_planes_from_scipy(sp.csr_matrix(a, dtype=np.float64))
+
+
+def _host_axes(offsets, data, dims, theta):
+    return strong_axes((offsets, data), dims, theta)
+
+
+def _host_rap(phase, offsets, data, dims, coarse_dims, axes, p):
+    """:func:`.comb_rap.structured_rap` on the f64 planes; the exact sparse
+    product only when its probe rejects the radius-1 contract."""
+    from ..ops.rap import galerkin_product
+
+    try:
+        offs_c, data_c = structured_rap(offsets, data, dims, coarse_dims,
+                                        axes)
+    except ValueError:
+        cur_sp = dia_to_scipy(Dia(data=data, offsets=tuple(offsets)))
+        offs_c, data_c = dia_planes_from_scipy(
+            galerkin_product(cur_sp, prolong_to_scipy(p)))
+    return offs_c, np.asarray(data_c)
+
+
+def _host_lmax(offsets, data, dims, dinv):
+    """λmax in float32 on the f32 planes, through the native kernel from
+    2¹⁸ rows (as the reference: it sets ω, hence the iteration counts)."""
+    from .. import native
+
+    data_f = np.ascontiguousarray(data, np.float32)
+    n = int(np.prod(dims))
+    if n >= (1 << 18) and native.available():
+        def apply_fn(v):
+            return native.dia_apply(offsets, data_f, v)
+    else:   # small levels: the per-call OpenMP spawn outweighs it
+        def apply_fn(v):
+            return dia_apply(offsets, data_f, v)
+    return (Dia(data=data_f, offsets=tuple(offsets), dims=dims),
+            _estimate_lmax_apply(apply_fn, dinv, n, dtype=np.float32))
+
+
+def _device_planes(a, device):
+    """f32 planes on ``device`` (the device flavor takes a ``Dia`` only)."""
     if not isinstance(a, Dia):
         raise TypeError("the device structured setup needs a Dia operator")
-    offsets = [int(o) for o in a.offsets]
-    data = torch.as_tensor(a.data).to(device, torch.float32)
-    host = HostSetup(ops=[fine_host_operator(a) if keep_host else None],
-                     states=[], p=[])
-    levels = []
-    trace = SetupTrace()
-    n = int(np.prod(dims))
-    while n > params.coarse_size and len(levels) < params.max_levels - 1:
-        k = len(levels)
-        with trace.phase(f"L{k} n={n} strength/axes"):
-            means, _ = _diag_stats(data)
-            axes = strong_axes_from_values(offsets, means.cpu().numpy(),
-                                           dims, params.theta)
-        if not any(axes):
-            break
-        coarse_dims = tuple((d + 1) // 2 if c else d
-                            for d, c in zip(dims, axes))
-        p = GridProlong(fine_shape=dims, coarse_shape=coarse_dims,
-                        coarsened=axes)
-        r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
-                         coarsened=axes)
-        with trace.phase(f"L{k} RAP") as ph:
-            offs_c, data_c = cr.comb_rap_device(offsets, data, dims,
-                                                coarse_dims, axes)
-            ph.sync = data_c
-        with trace.phase(f"L{k} lmax"):
-            if params.smoother == "l1jacobi":
-                dinv = 1.0 / data.abs().sum(dim=0)
-            else:
-                dinv = 1.0 / data[offsets.index(0)]
-            cur = Dia(data=data, offsets=tuple(offsets), dims=dims)
-            lmax = estimate_lmax(cur, dinv)
-        with trace.phase(f"L{k} operator form") as ph:
-            a_lvl = _structured_form(cur, params, device, k)
-            ph.label += f" ({type(a_lvl).__name__})"
-        levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
-        offsets, data, dims = offs_c, data_c, coarse_dims
-        n = int(np.prod(dims))
-        if keep_host:
-            host.ops.append(dia_to_scipy(Dia(data=data,
-                                             offsets=tuple(offsets))))
+    return ([int(o) for o in a.offsets],
+            torch.as_tensor(a.data).to(device, torch.float32))
 
-    hier = _finish(levels, _dense_from_planes(offsets, data.cpu().numpy(),
-                                              n), params, device,
-                   ("comb",) * len(levels))
-    return (hier, host) if keep_host else hier
+
+def _device_axes(offsets, data, dims, theta):
+    """The axes from the per-diagonal means of the nonzeros: the only
+    per-level statistics read on the host."""
+    means = data.sum(dim=1) / (data != 0).sum(dim=1).clamp_min(1)
+    return strong_axes_from_values(offsets, means.cpu().numpy(), dims, theta)
+
+
+def _device_rap(phase, offsets, data, dims, coarse_dims, axes, p):
+    offs_c, data_c = comb_rap_device(offsets, data, dims, coarse_dims, axes)
+    phase.sync = data_c
+    return offs_c, data_c
+
+
+def _device_lmax(offsets, data, dims, dinv):
+    """λmax by power iteration through the DIA kernel on the f32 planes."""
+    from .smoothers import estimate_lmax
+
+    cur = Dia(data=data, offsets=tuple(offsets), dims=dims)
+    return cur, estimate_lmax(cur, dinv)
+
+
+# the structured setup's flavors: f64 host planes, or f32 device planes of
+# which only the O(ndiag) statistics, the constant-stencil coefficients, the
+# coarsest operator and (``keep_host=True``) each level reach the host
+_STRUCTURED = {
+    "host": _StructuredSteps(_host_planes, _host_axes, _host_rap,
+                             _host_lmax, "host"),
+    "device": _StructuredSteps(_device_planes, _device_axes, _device_rap,
+                               _device_lmax, "comb"),
+}
 
 
 def hierarchy_stats(hier: Hierarchy, host: HostSetup | None = None) -> dict:

@@ -1,6 +1,7 @@
 """AMG parameter set (reference's CLI knobs; SURVEY.md §5.6).
 
-Frozen dataclass → hashable → usable as a static argument to ``jax.jit``.
+A frozen dataclass with the reference's fields, so that a same-field
+parameter set converts field by field (``interop.py``, ``utils/io.py``).
 Defaults are the classical-AMG textbook values the reference's configs imply
 (θ=0.25, ω=2/3 weighted Jacobi, V(1,1), coarse direct solve ≤ 100 rows).
 """
@@ -35,27 +36,23 @@ class AMGParams:
     interp_max_elements: int = 6  # P row width cap (truncation, rescaled)
     coarse_size: int = 100       # dense direct solve below this many rows
     coarse_solver: str = "chol"  # "chol" (triangular solves) | "inv"
-                                 # (precomputed dense inverse: one matmul =
-                                 # one serialized stage — faster through the
-                                 # relay's per-stage latency floor)
+                                 # (precomputed symmetrized dense inverse:
+                                 # one matrix-vector product)
     max_levels: int = 25
-    max_structured_diags: int = 192  # bail structured→ELL above this band count
+    max_structured_diags: int = 192  # no reader in the port: kept for
+                                     # the same-field contract
     max_coarsen_rounds: int = 64  # PMIS round cap (safety)
     min_coarsen_factor: float = 1.02  # stop if a level shrinks less than this
-    routed: str = "auto"         # routed-ELL SpMV for PMIS levels:
-                                 # "auto" (on TPU backend) | "force" | "off"
+    routed: str = "auto"         # no reader in the port (no routed-ELL
+                                 # SpMV): kept for the same-field contract
     const_stencil: str = "auto"  # matrix-free ConstDia for levels whose
                                  # operator is a masked-constant stencil
-                                 # (streams x/y only — ~2.8× the PlaneDia
-                                 # SpMV ceiling): "auto" | "off"
+                                 # (streams x and y only): "auto" | "off"
     rap: str = "auto"            # PMIS-path Galerkin numeric engine:
-                                 # "auto" (cost-based: device probe on TPU
-                                 # for levels big enough that the MXU
-                                 # numeric phase beats its stage floors;
-                                 # host Gustavson otherwise) | "host"
-                                 # (native OpenMP Gustavson, f64) |
-                                 # "probe" (force the colored-probing
-                                 # device RAP — ops/probe_rap.py — on
-                                 # every level it fits). The symbolic
-                                 # pattern always comes from the host
-                                 # product (SURVEY §4.2 two-phase split).
+                                 # "auto" and "host" (native OpenMP
+                                 # Gustavson on the host, f64) | "probe"
+                                 # (the colored-probing device numeric
+                                 # phase, ops/probe_rap.py, on every
+                                 # level). The symbolic pattern always
+                                 # comes from the host product (SURVEY
+                                 # §4.2 two-phase split).

@@ -1,4 +1,4 @@
-"""The standard PCG's vector updates, in place: the hand-written CUDA kernel,
+"""The PCG programs' vector updates, in place: the hand-written CUDA kernel,
 its plain twin, the wrappers and their launch counter.
 
 The kernel is ``omp_amg_tpu_torch/csrc/pcg_update.cu``. It replaces no TPU

@@ -9,10 +9,3 @@ import torch
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.dot(x, y)
 
-
-def norm2(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.dot(x, x))
-
-
-def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return alpha * x + y

@@ -61,7 +61,7 @@ import torch
 from ..amg.params import AMGParams
 from ..amg.smoothers import chebyshev_coeffs, jacobi_sweep
 from ..amg.vcycle import coarse_solve
-from ..ops import csr_spmv
+from ..ops import csr_spmv, pcg_update
 from ..ops import spmv as ops
 from ..solvers import graph as G
 from ..solvers.cg import VARIANTS, CGResult, host_copy, standard_program
@@ -367,7 +367,8 @@ def _pipelined_program(apply_a, precond, maxiter: int,
         u = precond(b)
         hist, k = G.new_history(maxiter, torch.sqrt(rn2))
         one = torch.ones_like(rn2)
-        return dict(x=_map(torch.zeros_like, b), r=b, u=u, w=apply_a(u),
+        return dict(x=_map(torch.zeros_like, b), r=_map(torch.clone, b),
+                    u=u, w=apply_a(u),
                     p=_map(torch.zeros_like, b), s=_map(torch.zeros_like, b),
                     g_prev=one, a_prev=one.clone(), k=k,
                     active=(rn2 > tol * tol * bnorm2) & (k < maxiter),
@@ -382,16 +383,16 @@ def _pipelined_program(apply_a, precond, maxiter: int,
         beta = torch.where(k0 == 0, torch.zeros_like(gamma),
                            gamma / st["g_prev"])
         alpha = gamma / (delta - beta * gamma / st["a_prev"])
-        p = _map(lambda ui, pi: ui + beta * pi, st["u"], st["p"])
-        s = _map(lambda wi, si: wi + beta * si, st["w"], st["s"])
-        x = _map(lambda xi, pi: xi + alpha * pi, st["x"], p)
-        r = _map(lambda ri, si: ri - alpha * si, st["r"], s)
+        flag = st["active"] if masked else None
+        x, r, p, s = st["x"], st["r"], st["p"], st["s"]
+        _map(lambda *v: pcg_update.p_update(*v, beta, flag), p, st["u"])
+        _map(lambda *v: pcg_update.p_update(*v, beta, flag), s, st["w"])
+        _map(lambda *v: pcg_update.xr(*v, alpha, flag), x, r, p, s)
         u = precond(r)
         w = apply_a(u)
         k, active = G.advance(st, maxiter, rn2 > st["thr"])
-        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
-                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
-                    s=sel(s, st["s"]), g_prev=sel(gamma, st["g_prev"]),
+        return dict(st, u=sel(u, st["u"]), w=sel(w, st["w"]),
+                    g_prev=sel(gamma, st["g_prev"]),
                     a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
 
     def finish(st):

@@ -4,13 +4,13 @@
 Each variant is a start step and an iteration step over a device state
 (:mod:`.graph`): every scalar, the iteration counter, the exit flag and the
 residual history stay on the device. Standard PCG forms α, β and the
-residual norm there and, on one device, updates x, r and p in place
-through two kernels (:mod:`..ops.pcg_update`); the pipelined
-(single-reduction) PCG forms γ, δ and ‖r‖² at one point per iteration and
-α, β from them as f32 device scalars, the IEEE f32 operations of the
-reference's traced scalars (``omp_amg_tpu/solvers/cg.py:107-108``), in the
-order the host loop of earlier versions computed them in numpy float32, so
-the iterates are bit for bit that loop's.
+residual norm there; the pipelined (single-reduction) PCG forms γ, δ and
+‖r‖² at one point per iteration and α, β from them as f32 device scalars,
+the IEEE f32 operations of the reference's traced scalars
+(``omp_amg_tpu/solvers/cg.py:107-108``), in the order the host loop of
+earlier versions computed them in numpy float32, so the iterates are bit
+for bit that loop's. Both update their state vectors (x, r, p and, pipelined,
+s) in place through :mod:`..ops.pcg_update`, per shard on shard lists.
 
 ``amg_pcg`` and ``cg`` run the captured blocks of :mod:`.graph` on CUDA
 (``graph=True``, the default: CUDA graphs cached on the hierarchy, or on
@@ -31,7 +31,7 @@ from ..amg.hierarchy import Hierarchy
 from ..amg.vcycle import vcycle
 from ..ops import pcg_update
 from ..ops.spmv import spmv
-from ..ops.vecops import axpy, dot
+from ..ops.vecops import dot
 from . import graph as G
 
 VARIANTS = ("standard", "pipelined")
@@ -64,11 +64,10 @@ def standard_program(apply_a, precond: Callable, maxiter: int, *,
     :mod:`..parallel.dist`. The exit test is the reference's f32
     ‖r‖ > tol·‖b‖.
 
-    On tensors the step updates the state's x, r and p in place through
-    :mod:`..ops.pcg_update` (the kernel on the card), masked by the step's
-    entry flag, so the start gives the state buffers of its own. Per-shard
-    lists keep the where-form: new vectors, selected by
-    ``torch.where(active, new, old)``."""
+    The step updates the state's x, r and p in place through
+    :mod:`..ops.pcg_update` (the kernel on the card), per shard on shard
+    lists, masked by the step's entry flag, so the start gives the state
+    buffers of its own."""
 
     def start(b, tol, x0):
         if x0 is None:
@@ -89,30 +88,17 @@ def standard_program(apply_a, precond: Callable, maxiter: int, *,
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
         sel = G.selector(st["active"], masked)
         flag = st["active"] if masked else None
-        shards = isinstance(x, list)
         q = apply_a(p)
         alpha = rz / dot(p, q)
-        if shards:
-            x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
-            r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
-        else:
-            pcg_update.xr(x, r, p, q, alpha, flag)
-            x_n, r_n = x, r
-        z_n = precond(r_n)
-        rz_n = dot(r_n, z_n)
+        vmap(lambda *v: pcg_update.xr(*v, alpha, flag), x, r, p, q)
+        z = precond(r)
+        rz_n = dot(r, z)
         beta = rz_n / rz
-        if shards:
-            p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
-        else:
-            pcg_update.p_update(p, z_n, beta, flag)
-            p_n = p
-        rnorm = norm(r_n)
+        vmap(lambda *v: pcg_update.p_update(*v, beta, flag), p, z)
+        rnorm = norm(r)
         k, active = G.advance(st, maxiter, rnorm > st["thr"])
         G.record(st["hist"], k, rnorm, st["active"])
-        if shards:
-            x_n, r_n, p_n = sel(x_n, x), sel(r_n, r), sel(p_n, p)
-        return dict(st, x=x_n, r=r_n, p=p_n, rz=sel(rz_n, rz), k=k,
-                    active=active)
+        return dict(st, rz=sel(rz_n, rz), k=k, active=active)
 
     def finish(st):
         k, history, bnorm = host_copy(st, "bnorm")
@@ -137,7 +123,7 @@ def pipelined_program(a, precond: Callable, maxiter: int) -> G.Program:
         if x0 is None:
             x, r = torch.zeros_like(b), b.clone()
         else:
-            x, r = x0, b - spmv(a, x0)
+            x, r = x0.clone(), b - spmv(a, x0)
         bnorm = G.guard(torch.linalg.vector_norm(b))
         u = precond(r)
         w = spmv(a, u)
@@ -158,20 +144,20 @@ def pipelined_program(a, precond: Callable, maxiter: int) -> G.Program:
         beta = torch.where(st["k"] == 0, torch.zeros_like(gamma),
                            gamma / st["g_prev"])
         alpha = gamma / (delta - beta * gamma / st["a_prev"])
-        p = axpy(beta, st["p"], st["u"])
-        s = axpy(beta, st["s"], st["w"])
-        x = axpy(alpha, p, st["x"])
-        r = axpy(-alpha, s, st["r"])
+        flag = st["active"] if masked else None
+        x, r, p, s = st["x"], st["r"], st["p"], st["s"]
+        pcg_update.p_update(p, st["u"], beta, flag)
+        pcg_update.p_update(s, st["w"], beta, flag)
+        pcg_update.xr(x, r, p, s, alpha, flag)
         u = precond(r)
         w = spmv(a, u)
         g_n, d_n, rn2 = reduce(r, u, w)
         rnorm = torch.sqrt(rn2)
         k, active = G.advance(st, maxiter, rnorm > st["thr"])
         G.record(st["hist"], k, rnorm, st["active"])
-        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
-                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
-                    s=sel(s, st["s"]), gamma=sel(g_n, gamma),
-                    delta=sel(d_n, delta), g_prev=sel(gamma, st["g_prev"]),
+        return dict(st, u=sel(u, st["u"]), w=sel(w, st["w"]),
+                    gamma=sel(g_n, gamma), delta=sel(d_n, delta),
+                    g_prev=sel(gamma, st["g_prev"]),
                     a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
 
     def finish(st):

@@ -12,8 +12,9 @@ dict of device tensors, or of per-shard lists of them):
   guarded), all on the device;
 - ``step(state, masked)``: one iteration. With ``masked=True`` every update
   keeps the old value where the step's entry ``active`` is false (a
-  ``torch.where(active, new, old)``, or, for the standard PCG's vectors on
-  one device, an in-place kernel that then writes nothing), ``k`` grows
+  ``torch.where(active, new, old)`` for the scalars and the vectors made
+  anew, such as the cycle's; the in-place updates of x, r, p and s through
+  ``ops/pcg_update.py`` then write nothing), ``k`` grows
   only while active, the history entry is written at a device index, and
   ``active`` is recomputed from the variant's own exit test and ``k <
   maxiter``; an iteration run after the exit (a *frozen* one) launches its

@@ -47,14 +47,3 @@ def tune_malloc(threshold: int = (1 << 31) - 1) -> bool:
     _done = ok
     return ok
 
-
-def trim_heap() -> None:
-    """Return freed heap pages to the OS (malloc_trim(0)); pairs with
-    tune_malloc when a long-lived process wants its high-water mark back
-    between large phases."""
-    try:
-        import ctypes
-
-        ctypes.CDLL(None).malloc_trim(0)
-    except Exception:
-        pass

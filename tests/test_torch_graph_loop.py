@@ -14,10 +14,12 @@ block loop:
   number of iterations;
 - ``maxiter`` reached inside a block stops the count there; b = 0 takes no
   iteration;
-- standard PCG and ``cg``, whose vectors the step updates in place
-  (``ops/pcg_update.py``), give bit for bit the where-form step of earlier
-  versions (kept here as an oracle), on both loops, from x = 0 and from a
-  given x0; the caller's x0 is left as it was;
+- every PCG program, whose vectors the step updates in place
+  (``ops/pcg_update.py``), gives bit for bit the where-form step of earlier
+  versions (kept here as oracles), on both loops: standard PCG, ``cg`` and
+  pipelined PCG on one device, from x = 0 and from a given x0, and
+  standard and pipelined PCG on 2 and 4 shards; the caller's x0, and its b
+  (full or in shards) on the sharded path, are left as they were;
 - a refresh drops the graphs cached on the hierarchy it replaces.
 
 The capture itself needs the card: ``tests/test_torch_cuda.py``.
@@ -215,22 +217,23 @@ def _host_dist_pcg_pipelined(dh, b, tol, maxiter):
     return x, k, float(rnorm / np.sqrt(bnorm2)), history
 
 
-def _where_form_program(apply_a, precond, maxiter):
-    """The standard PCG steps of earlier versions on one device: every
-    vector update a new tensor (a multiply by the 0-dim scalar and an add),
-    selected by ``torch.where(active, new, old)``, and z kept in the
+def _where_form_program(apply_a, precond, maxiter, dot=torch.dot,
+                        norm=torch.linalg.vector_norm, vmap=G.vmap):
+    """The standard PCG steps of earlier versions: every vector update a new
+    tensor (a multiply by the 0-dim scalar and an add), per shard on shard
+    lists, selected by ``torch.where(active, new, old)``, and z kept in the
     state."""
     def start(b, tol, x0):
         if x0 is None:
-            x, r = torch.zeros_like(b), b.clone()
+            x, r = vmap(torch.zeros_like, b), vmap(torch.clone, b)
         else:
             x, r = x0, b - apply_a(x0)
-        bnorm = G.guard(torch.linalg.vector_norm(b))
+        bnorm = G.guard(norm(b))
         z = precond(r)
-        rnorm = torch.linalg.vector_norm(r)
+        rnorm = norm(r)
         hist, k = G.new_history(maxiter, rnorm)
         thr = tol * bnorm
-        return dict(x=x, r=r, z=z, p=z, rz=torch.dot(r, z), k=k,
+        return dict(x=x, r=r, z=z, p=z, rz=dot(r, z), k=k,
                     active=(rnorm > thr) & (k < maxiter), hist=hist,
                     thr=thr, bnorm=bnorm)
 
@@ -238,14 +241,14 @@ def _where_form_program(apply_a, precond, maxiter):
         sel = G.selector(st["active"], masked)
         x, r, p, rz = st["x"], st["r"], st["p"], st["rz"]
         q = apply_a(p)
-        alpha = rz / torch.dot(p, q)
-        x_n = x + alpha * p
-        r_n = r - alpha * q
+        alpha = rz / dot(p, q)
+        x_n = vmap(lambda xi, pi: xi + alpha * pi, x, p)
+        r_n = vmap(lambda ri, qi: ri - alpha * qi, r, q)
         z_n = precond(r_n)
-        rz_n = torch.dot(r_n, z_n)
+        rz_n = dot(r_n, z_n)
         beta = rz_n / rz
-        p_n = z_n + beta * p
-        rnorm = torch.linalg.vector_norm(r_n)
+        p_n = vmap(lambda zi, pi: zi + beta * pi, z_n, p)
+        rnorm = norm(r_n)
         k, active = G.advance(st, maxiter, rnorm > st["thr"])
         G.record(st["hist"], k, rnorm, st["active"])
         return dict(st, x=sel(x_n, x), r=sel(r_n, r), z=sel(z_n, st["z"]),
@@ -255,6 +258,120 @@ def _where_form_program(apply_a, precond, maxiter):
         k, history, bnorm = host_copy(st, "bnorm")
         return CGResult(x=st["x"], iters=k,
                         rel_residual=float(history[-1] / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
+
+
+def _where_form_pipelined(a, precond, maxiter):
+    """The single-device pipelined PCG steps of earlier versions: p, s, x
+    and r made anew (``β·p + u``, ``β·s + w``, ``α·p + x``, ``(−α)·s + r``)
+    and selected by ``torch.where(active, new, old)``."""
+    def reduce(r, u, w):
+        return torch.stack([torch.dot(r, u), torch.dot(w, u),
+                            torch.dot(r, r)]).unbind()
+
+    def start(b, tol, x0):
+        if x0 is None:
+            x, r = torch.zeros_like(b), b.clone()
+        else:
+            x, r = x0, b - spmv(a, x0)
+        bnorm = G.guard(torch.linalg.vector_norm(b))
+        u = precond(r)
+        w = spmv(a, u)
+        gamma, delta, rn2 = reduce(r, u, w)
+        rnorm = torch.sqrt(rn2)
+        hist, k = G.new_history(maxiter, rnorm)
+        thr = tol * bnorm
+        one = torch.ones_like(rnorm)
+        return dict(x=x, r=r, u=u, w=w, p=torch.zeros_like(b),
+                    s=torch.zeros_like(b), gamma=gamma, delta=delta,
+                    g_prev=one, a_prev=one.clone(), k=k,
+                    active=(rnorm > thr) & (k < maxiter), hist=hist,
+                    thr=thr, bnorm=bnorm)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        gamma, delta = st["gamma"], st["delta"]
+        beta = torch.where(st["k"] == 0, torch.zeros_like(gamma),
+                           gamma / st["g_prev"])
+        alpha = gamma / (delta - beta * gamma / st["a_prev"])
+        p = beta * st["p"] + st["u"]
+        s = beta * st["s"] + st["w"]
+        x = alpha * p + st["x"]
+        r = -alpha * s + st["r"]
+        u = precond(r)
+        w = spmv(a, u)
+        g_n, d_n, rn2 = reduce(r, u, w)
+        rnorm = torch.sqrt(rn2)
+        k, active = G.advance(st, maxiter, rnorm > st["thr"])
+        G.record(st["hist"], k, rnorm, st["active"])
+        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
+                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
+                    s=sel(s, st["s"]), gamma=sel(g_n, gamma),
+                    delta=sel(d_n, delta), g_prev=sel(gamma, st["g_prev"]),
+                    a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
+
+    def finish(st):
+        k, history, bnorm = host_copy(st, "bnorm")
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(np.float32(history[-1]) / bnorm),
+                        history=history)
+
+    return G.Program(start, step, finish)
+
+
+def _where_form_dist_pipelined(dh, maxiter):
+    """The sharded pipelined PCG steps of earlier versions, from x = 0:
+    p, s, x and r made anew per shard and selected by ``torch.where(active,
+    new, old)``, r₀ the caller's b itself."""
+    a, d, mesh = dh.levels[0].a, dh.nshards, dh.mesh
+
+    def precond(r):
+        return dist_vcycle(dh, r)
+
+    def start(b, tol, x0):
+        rn2 = pdot(b, b, mesh)
+        bnorm2 = G.guard(rn2)
+        u = precond(b)
+        hist, k = G.new_history(maxiter, torch.sqrt(rn2))
+        one = torch.ones_like(rn2)
+        return dict(x=[torch.zeros_like(t) for t in b], r=b, u=u,
+                    w=dist_spmv(a, u, d),
+                    p=[torch.zeros_like(t) for t in b],
+                    s=[torch.zeros_like(t) for t in b],
+                    g_prev=one, a_prev=one.clone(), k=k,
+                    active=(rn2 > tol * tol * bnorm2) & (k < maxiter),
+                    hist=hist, thr=tol * tol * bnorm2, bnorm2=bnorm2)
+
+    def step(st, masked):
+        sel = G.selector(st["active"], masked)
+        k0 = st["k"]
+        gamma, delta, rn2 = _pdots([(st["r"], st["u"]), (st["w"], st["u"]),
+                                    (st["r"], st["r"])], mesh).unbind()
+        G.record(st["hist"], k0, torch.sqrt(rn2), st["active"] & (k0 > 0))
+        beta = torch.where(k0 == 0, torch.zeros_like(gamma),
+                           gamma / st["g_prev"])
+        alpha = gamma / (delta - beta * gamma / st["a_prev"])
+        p = [ui + beta * pi for ui, pi in zip(st["u"], st["p"])]
+        s = [wi + beta * si for wi, si in zip(st["w"], st["s"])]
+        x = [xi + alpha * pi for xi, pi in zip(st["x"], p)]
+        r = [ri - alpha * si for ri, si in zip(st["r"], s)]
+        u = precond(r)
+        w = dist_spmv(a, u, d)
+        k, active = G.advance(st, maxiter, rn2 > st["thr"])
+        return dict(st, x=sel(x, st["x"]), r=sel(r, st["r"]),
+                    u=sel(u, st["u"]), w=sel(w, st["w"]), p=sel(p, st["p"]),
+                    s=sel(s, st["s"]), g_prev=sel(gamma, st["g_prev"]),
+                    a_prev=sel(alpha, st["a_prev"]), k=k, active=active)
+
+    def finish(st):
+        rnorm = pnorm(st["r"], mesh)
+        k, history, rnorm, bnorm2 = host_copy(dict(st, rnorm=rnorm),
+                                              "rnorm", "bnorm2")
+        history = history[:k] + [float(rnorm)] if k else history[:1]
+        return CGResult(x=st["x"], iters=k,
+                        rel_residual=float(float(rnorm) / np.sqrt(bnorm2)),
                         history=history)
 
     return G.Program(start, step, finish)
@@ -307,7 +424,7 @@ def _x0(b):
 
 @pytest.mark.parametrize("start", ["zero", "x0"])
 @pytest.mark.parametrize("graph", [False, True])
-@pytest.mark.parametrize("variant", ["standard", "cg"])
+@pytest.mark.parametrize("variant", ["standard", "pipelined", "cg"])
 def test_serial_bitwise_where_form_step(serial, monkeypatch, variant, graph,
                                         start):
     """The in-place updates give the where-form step's count, history and x
@@ -319,8 +436,11 @@ def test_serial_bitwise_where_form_step(serial, monkeypatch, variant, graph,
                else (lambda r: port.vcycle(hier, r)))
     x0 = None if start == "zero" else _x0(b)
     monkeypatch.setattr(G, "BLOCK", 3)
-    want = G.run(_where_form_program(lambda v: spmv(a, v), precond, 500),
-                 b, TOL, x0, graph=graph, owner=_Owner(), key=variant)
+    program = (_where_form_pipelined(a, precond, 500)
+               if variant == "pipelined" else
+               _where_form_program(lambda v: spmv(a, v), precond, 500))
+    want = G.run(program, b, TOL, x0, graph=graph, owner=_Owner(),
+                 key=variant)
     got = _serial_solve(variant, hier, b, graph=graph, x0=x0)
     assert got.iters > 3
     _same(want, got)
@@ -363,6 +483,43 @@ def test_sharded_loop_bitwise_host_scalar_loop(variant, ndev):
     _same_as_host(make_dist_solver(mesh, dh, tol=TOL, variant=variant,
                                    graph=False)(dh, bs),
                   oracle(dh, bs, TOL, 200))
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("ndev", [2, 4])
+@pytest.mark.parametrize("variant", ["standard", "pipelined"])
+def test_sharded_bitwise_where_form_step(monkeypatch, variant, ndev, graph):
+    """On shard lists the in-place updates give the where-form step's count,
+    history and x bit for bit, on blocks of 3 and on the per-iteration
+    loop."""
+    mesh, dh, bs = _mesh(ndev)
+    monkeypatch.setattr(G, "BLOCK", 3)
+    if variant == "pipelined":
+        program = _where_form_dist_pipelined(dh, 200)
+    else:
+        program = _where_form_program(
+            lambda v: dist_spmv(dh.levels[0].a, v, dh.nshards),
+            lambda r: dist_vcycle(dh, r), 200,
+            dot=lambda u, v: pdot(u, v, dh.mesh),
+            norm=lambda u: pnorm(u, dh.mesh), vmap=G.vmap)
+    want = G.run(program, bs, TOL, graph=graph, owner=_Owner(), key=variant)
+    got = make_dist_solver(mesh, dh, tol=TOL, variant=variant,
+                           graph=graph)(dh, bs)
+    assert got.iters > 3
+    _same(want, got)
+
+
+@pytest.mark.parametrize("given", ["full", "shards"])
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("variant", ["standard", "pipelined"])
+def test_sharded_b_left_unchanged(variant, graph, given):
+    mesh, dh, bs = _mesh(2)
+    b = torch.cat(bs) if given == "full" else [t.clone() for t in bs]
+    kept = torch.cat(bs).clone()
+    res = make_dist_solver(mesh, dh, tol=TOL, variant=variant,
+                           graph=graph)(dh, b)
+    assert res.iters > 0
+    assert torch.equal(torch.cat(b) if given == "shards" else b, kept)
 
 
 # --- the reference's counts --------------------------------------------------

@@ -1,4 +1,4 @@
-"""The standard PCG's in-place vector updates through ``ops/pcg_update.py``:
+"""The PCG's in-place vector updates through ``ops/pcg_update.py``:
 the wrappers run the plain twin on CPU tensors without a launch, bit for bit
 the where-form step they replace (kept here as it was: new vectors selected
 by ``torch.where(active, new, old)``), for f32 and f64, with the flag true,
@@ -8,8 +8,10 @@ raise.
 On the card (marked ``cuda``, skipped elsewhere): the kernel against the
 twin with ``torch.equal`` at lengths that exercise the 16-byte loads and
 the scalar tail, and at a view 4 bytes off a 16-byte boundary (the scalar
-path); the checks on CUDA tensors; and a captured PCG solve, with 2 launches
-per executed iteration, bit for bit the where-form's per-iteration loop.
+path); the checks on CUDA tensors; and a captured solve of standard and
+pipelined PCG, on one device and on a ``ShardMesh(2)`` of the card, with 2
+launches (pipelined: 3) per shard and executed iteration, bit for bit the
+where-form's per-iteration loop.
 Run there with
 
     python -m pytest --noconftest tests/test_torch_pcg_update.py -q -m cuda
@@ -179,29 +181,51 @@ def test_kernel_checks_raise(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["pmis", "structured"])
-def test_captured_solve_equals_where_form(path, monkeypatch):
-    """A captured standard PCG solve at 32³ through the kernel against the
+@pytest.mark.parametrize("variant", ["standard", "pipelined"])
+@pytest.mark.parametrize("path", ["pmis", "structured", "z-slab",
+                                  "pmis-mesh"])
+def test_captured_solve_equals_where_form(path, variant, monkeypatch):
+    """A captured PCG solve at 32³ through the kernel against the
     per-iteration loop with the twin (the where-form) in its place: count,
-    history and x bit for bit; on a replay, 2 launches per executed
-    iteration, frozen ones included."""
+    history and x bit for bit; on a replay, 2 launches (pipelined: 3) per
+    shard and executed iteration, frozen ones included. The mesh paths run
+    on a ``ShardMesh(2)`` of the card."""
     _need_cuda()
+    from omp_amg_tpu_torch.parallel.dist import make_dist_solver
     from omp_amg_tpu_torch.solvers import graph as G
 
     n = 32
     a = amg.poisson3d_7pt(n)
-    grid = (n,) * 3 if path == "structured" else None
+    grid = None if path.startswith("pmis") else (n,) * 3
     params = amg.AMGParams(coarsening="pmis") if grid is None else \
         amg.AMGParams()
-    hier = amg.amg_setup(a, params, device="cuda", grid=grid)
     b = amg.default_rhs(a, seed=0).cuda()
-    a0 = hier.levels[0].a
-    amg.amg_pcg(a0, b, hier, tol=1e-6)              # captures
-    before = pcg_update.launches
-    got = amg.amg_pcg(a0, b, hier, tol=1e-6)
+    if path in ("z-slab", "pmis-mesh"):
+        solver = amg.AMGSolver(a, params, grid=grid, device="cuda",
+                               mesh=amg.ShardMesh(2, "cuda"),
+                               transport="remote")
+        hier, b, shards = solver.hierarchy, solver.mesh.shard(b), 2
+
+        def solve(graph=True):
+            return make_dist_solver(solver.mesh, hier, tol=1e-6,
+                                    variant=variant, graph=graph)(hier, b)
+    else:
+        hier = amg.amg_setup(a, params, device="cuda", grid=grid)
+        a0, shards = hier.levels[0].a, 1
+
+        def solve(graph=True):
+            return amg.amg_pcg(a0, b, hier, tol=1e-6, variant=variant,
+                               graph=graph)
+
+    def blocks():
+        return sum(st["blocks"] for st in G.graph_stats(hier).values())
+    solve()                                         # captures
+    before, blocks0 = pcg_update.launches, blocks()
+    got = solve()
     torch.cuda.synchronize()
-    blocks = -(-max(got.iters, 1) // G.BLOCK)
-    assert pcg_update.launches - before == 2 * G.BLOCK * blocks
+    per_slot = 3 if variant == "pipelined" else 2
+    assert pcg_update.launches - before == \
+        per_slot * shards * G.BLOCK * (blocks() - blocks0)
 
     def twin(kind, n, scalar, active, u, v, s, t):
         if kind == 0:
@@ -209,8 +233,10 @@ def test_captured_solve_equals_where_form(path, monkeypatch):
         else:
             pcg_update.p_twin(u, s, scalar, active)
     monkeypatch.setattr(pcg_update, "_launch", twin)
-    want = amg.amg_pcg(a0, b, hier, tol=1e-6, graph=False)
+    want = solve(graph=False)
     torch.cuda.synchronize()
     assert got.iters == want.iters > 3
     assert got.history == want.history
-    assert torch.equal(got.x, want.x)
+    xs, ws = (got.x, want.x) if shards > 1 else ([got.x], [want.x])
+    assert len(xs) == shards
+    assert all(torch.equal(u, v) for u, v in zip(xs, ws))
