@@ -52,6 +52,14 @@ Phases (each raises on failure, so the exit code is non-zero):
    count, history and x bit for bit, 2 ``pcg_update`` launches per shard
    and executed iteration, both solves timed (where-form, kernel, kernel,
    where-form) and profiled;
+6d. ``ir_f64`` kernel checks (the certified loop's f64 work): the residual
+   on 7-point 256³ and 27-point 128³ f64 planes, the defect and the
+   in-place update, against the twins on the same CUDA tensors, bit for
+   bit, each timed beside its bound, the twin and one torch call;
+6e. one certified 256³ 7-point structured solve through the ``ir_f64``
+   kernels against the same solve with the twins in their place: x, counts,
+   histories and residual bit for bit, 3 launches per outer pass plus 1,
+   both timed and profiled;
 7. the 3D structured main path: ``AMGSolver(poisson3d_7pt(n), AMGParams(),
    grid=(n,)*3, device="cuda").solve(b, tol=1e-8)``; then ``dia_spmv``
    checks on its Galerkin levels;
@@ -215,6 +223,9 @@ PCG_BOUND = 0.0     # pcg_update: the where-form's rounding, bit for bit
 PCG_N = 256         # pcg_update checks and the where-form check: the
                     # benchmark cells' 256³
 PCG_TOL = 1e-6      # the where-form check's solve (f32 PCG)
+IR_BOUND = 0.0      # ir_f64: the certified loop's torch forms, bit for bit
+IR_N = 256          # ir_f64 rows (7-point) and the certified-solve check
+IR27_N = 128        # ir_f64 rows on the 27-point cell's 128³
 PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
 HALO_BOUND = 0.0    # remote_halo is a copy: exact
 SPIN_CYCLES = 2_000_000  # cuda_ms' spin before each timed call, ~1 ms
@@ -938,6 +949,175 @@ def pcg_where_form_checks(counters):
         torch.cuda.empty_cache()
 
 
+def _f64_csr(a):
+    """The banded f64 operator ``a`` as a ``torch.sparse_csr_tensor`` built
+    on the card (rows in order, columns ascending), for the ``torch.addmm``
+    yardstick; built apart, never handed to the port."""
+    import torch
+
+    n = a.n_rows
+    rows = torch.arange(n, device="cuda")[:, None]
+    cols = rows + torch.tensor(a.offsets, device="cuda")[None, :]
+    keep = (cols >= 0) & (cols < n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = keep.sum(1).cumsum(0)
+    return torch.sparse_csr_tensor(crow, cols[keep], a.data.t()[keep],
+                                   size=(n, n))
+
+
+def ir_f64_checks(rng, flush):
+    """Phase 6d: the certified loop's float64 kernels at the cells' sizes,
+    7-point ``IR_N``³ and 27-point ``IR27_N``³, on seeded normal f64
+    planes under the stencil's offsets, against their twins (the loop's
+    torch forms) on the same CUDA tensors, bit for bit: the residual r = b
+    − A·x (the f64 banded kernel), the defect r / ‖r‖ in f32 (also against
+    the loop's own ``(r / rnorm).float()``) and the in-place update
+    x ← x + ‖r‖·x_inner.
+    Bytes: the residual reads the planes, x and b and writes r; the defect
+    reads r and writes f32; the update reads x and x_inner and writes x.
+    Yardsticks, one torch call each: ``torch.addmm`` of the f64 CSR,
+    ``torch.div`` into an f32 ``out``, ``Tensor.add_`` with ``alpha``."""
+    import torch
+
+    from omp_amg_tpu_torch.ops import ir_f64
+    from omp_amg_tpu_torch.sparse.formats import Dia
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(int(rng.integers(2 ** 31)))
+    rows = []
+    for tag, n, reach in (("7pt", IR_N, 1), ("27pt", IR27_N, 3)):
+        # the stencil's taps (dz, dy, dx) in {-1, 0, 1}³ with at most
+        # ``reach`` of them nonzero, ascending
+        offsets = tuple(sorted(
+            dz * n * n + dy * n + dx for dz in (-1, 0, 1)
+            for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+            if abs(dz) + abs(dy) + abs(dx) <= reach))
+        m = n ** 3
+        a = Dia(data=torch.randn((len(offsets), m), dtype=torch.float64,
+                                 device="cuda", generator=g),
+                offsets=offsets)
+        x, b, e = (torch.randn(m, dtype=torch.float64, device="cuda",
+                               generator=g) for _ in range(3))
+        csr = _f64_csr(a)
+        xm, bm = x[:, None], b[:, None]
+        r = ir_f64.residual(a, x, b)
+        rnorm = float(torch.linalg.vector_norm(r))
+        want = (r / rnorm).float()
+        torch.cuda.synchronize()
+        if not torch.equal(ir_f64.defect(r, rnorm), want):
+            raise AssertionError(f"ir_f64 {tag}: the defect differs from "
+                                 "the loop's (r / rnorm).float()")
+        xi = e.float()
+        kx, tx, lx = x.clone(), x.clone(), x.clone()
+        out32 = torch.empty(m, device="cuda")
+        plane_bytes = a.data.numel() * 8
+        name = f"ir_f64:{tag}{n}^3"
+        rows.append(compare(
+            f"{name}:residual", lambda: ir_f64.residual(a, x, b),
+            lambda: ir_f64.residual_twin(a, x, b), IR_BOUND,
+            plane_bytes + 24 * m, flush,
+            library=lambda: torch.addmm(bm, csr, xm, alpha=-1),
+            flops=2 * csr._nnz()))
+        rows.append(compare(
+            f"{name}:defect", lambda: ir_f64.defect(r, rnorm),
+            lambda: ir_f64.defect_twin(r, rnorm), IR_BOUND, 12 * m, flush,
+            library=lambda: torch.div(r, rnorm, out=out32)))
+        rows.append(compare(
+            f"{name}:update", lambda: ir_f64.update(kx, rnorm, xi) or kx,
+            lambda: ir_f64.update_twin(tx, rnorm, xi) or tx, IR_BOUND,
+            20 * m, flush, library=lambda: lx.add_(xi, alpha=rnorm)))
+        del a, x, b, e, csr, xm, bm, r, xi, kx, tx, lx, out32
+        torch.cuda.empty_cache()
+    return rows
+
+
+class _Twins:
+    """The certified loop with the ir_f64 twins in the kernels' place (the
+    loop's torch forms), restored on exit."""
+
+    def __enter__(self):
+        from omp_amg_tpu_torch.ops import ir_f64
+
+        self.mod = ir_f64
+        self.kept = {k: getattr(ir_f64, k)
+                     for k in ("residual", "defect", "update")}
+        ir_f64.residual = ir_f64.residual_twin
+        ir_f64.defect = ir_f64.defect_twin
+        ir_f64.update = ir_f64.update_twin
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.kept.items():
+            setattr(self.mod, k, fn)
+
+
+def certified_twin_checks(counters):
+    """Phase 6e: one certified ``IR_N``³ 7-point solve on the structured
+    path (the structured cell's device setup; the PCG captured) through the
+    ir_f64 kernels, against the same solve with their twins (the loop's
+    torch forms) in their place: x, inner counts, histories and the
+    certified residual bit for bit; ir_f64 launches 3 per outer pass plus 1
+    and the twins' none; both solves timed (CUDA events, median of 5:
+    twins, kernels, kernels, twins) and profiled."""
+    import statistics
+
+    import torch
+
+    import omp_amg_tpu_torch as amg
+
+    a = amg.poisson3d_7pt(IR_N)
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(IR_N,) * 3,
+                           device="cuda", flavor="device")
+    b = amg.default_rhs(a, seed=SEED).to("cuda").double()
+    tag = f"ir_f64 certified structured n={IR_N}^3"
+
+    def kernel():
+        return solver.solve(b, tol=1e-8, residual="device",
+                            device_result=True)
+
+    def twins():
+        with _Twins():
+            return kernel()
+    kernel(), twins()                 # the capture, the first solves
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    got = kernel()
+    torch.cuda.synchronize()
+    mine, info = counters["ir_f64"].launches, dict(solver.last_info)
+    reset_counters(counters)
+    want = twins()
+    torch.cuda.synchronize()
+    theirs, twin_info = counters["ir_f64"].launches, dict(solver.last_info)
+    keys = ("inner_iters", "outer_iters", "residual_histories",
+            "rel_residual")
+    same = (all(info[k] == twin_info[k] for k in keys)
+            and torch.equal(got, want))
+    ms = {}
+    for side, fn in (("twins", twins), ("kernels", kernel),
+                     ("kernels2", kernel), ("twins2", twins)):
+        ms[side] = statistics.median(
+            cuda_ms(fn, reps=1, warm=0) for _ in range(5))
+    expect = 3 * info["outer_iters"] + 1
+    print(f"{tag}: inner={info['inner_iters']} outer={info['outer_iters']} "
+          f"rel={info['rel_residual']:.6e} x, counts, histories and rel "
+          f"bitwise the twins': {same}; ir_f64 launches {mine} (3 x "
+          f"{info['outer_iters']} + 1), twins {theirs}; solve ms (events, "
+          f"median of 5, twins/kernels/kernels/twins) {ms['twins']:.3f} "
+          f"{ms['kernels']:.3f} {ms['kernels2']:.3f} {ms['twins2']:.3f}",
+          flush=True)
+    if not same:
+        histories(f"{tag} kernels", info)
+        histories(f"{tag} twins", twin_info)
+        raise AssertionError(f"{tag}: the solve differs from the twins'")
+    if mine != expect or theirs != 0:
+        raise AssertionError(f"{tag}: ir_f64 launched {mine} times "
+                             f"(expected {expect}), the twins {theirs}")
+    profile_solve(f"{tag} kernels", None, None, run=kernel)
+    profile_solve(f"{tag} twins", None, None, run=twins)
+    del solver, b, got, want
+    torch.cuda.empty_cache()
+
+
 def reset_counters(counters):
     for mod in counters.values():
         mod.launches = 0
@@ -1352,7 +1532,7 @@ def sharded_path(n, counters, flush, rng):
     print(f"sharded d={SHARDS} stats={solver.stats()}", flush=True)
     expect_launches("sharded", launches,
                     ("dia_spmv", "remote_halo", "grid_transfer",
-                     "pcg_update"))
+                     "pcg_update", "ir_f64"))
     info = run["info"]
     runs = {"remote": run}
     for label, mesh, transport in (
@@ -1555,13 +1735,14 @@ def cheby_configs(counters, rng, flush):
     paths, rows, counts = {}, {}, {}
     for pipeline, params, g, used in (
             ("structured", amg.AMGParams(smoother="chebyshev"), grid,
-             ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update")),
+             ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update",
+              "ir_f64")),
             ("pmis", amg.AMGParams(coarsening="pmis", smoother="chebyshev"),
-             None, ("dia_spmv", "csr_spmv", "pcg_update")),
+             None, ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64")),
             ("pmis probe", amg.AMGParams(coarsening="pmis",
                                          smoother="chebyshev", rap="probe"),
              None, ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes",
-                    "pcg_update"))):
+                    "pcg_update", "ir_f64"))):
         label = f"cheby {pipeline} 27pt n={CHEBY_N}^3"
         if pipeline == "pmis probe":
             host, more = probe_setup_checks(a, params, flush)
@@ -1857,7 +2038,7 @@ def sharded_variants(n, counters):
             if d == SHARDS:
                 expect_launches(label, launches,
                                 ("dia_spmv", "remote_halo", "grid_transfer",
-                                 "pcg_update"))
+                                 "pcg_update", "ir_f64"))
                 paths[f"sharded_{name}"] = launches
             del solver
         four, one = infos[SHARDS], infos[1]
@@ -2086,7 +2267,8 @@ def refresh_paths(counters):
           f"outer={fi['outer_iters']} | pattern guard warnings={tripped} "
           f"launches={ {k: v for k, v in launches.items() if v} }",
           flush=True)
-    expect_launches(label, launches, ("dia_spmv", "csr_spmv", "pcg_update"))
+    expect_launches(label, launches, ("dia_spmv", "csr_spmv", "pcg_update",
+                                      "ir_f64"))
     check_certified(label, info, rel)
     if tripped:
         raise AssertionError(f"{label}: the refresh fell back to a fresh "
@@ -2150,7 +2332,8 @@ def cli_paths(counters):
     with tempfile.TemporaryDirectory() as tmp:
         _, paths["cli_structured"] = run(
             f"3d7pt n={n}", ["--problem", "3d7pt", "--n", str(n)],
-            ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update"))
+            ("const_stencil", "dia_spmv", "grid_transfer", "pcg_update",
+             "ir_f64"))
 
         # PMIS, saved; the saved hierarchy captured for the bitwise check
         h_path = os.path.join(tmp, "h.npz")
@@ -2166,13 +2349,13 @@ def cli_paths(counters):
             first, paths["cli_pmis_save"] = run(
                 f"3d7pt n={n} pmis --save-hierarchy",
                 pmis + ["--save-hierarchy", h_path],
-                ("dia_spmv", "csr_spmv", "pcg_update"))
+                ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
         finally:
             amg_io.save_hierarchy = save
         loaded, paths["cli_pmis_load"] = run(
             f"3d7pt n={n} pmis --load-hierarchy",
             pmis + ["--load-hierarchy", h_path],
-            ("dia_spmv", "csr_spmv", "pcg_update"))
+            ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
         want = dict(hier_tensors(saved.pop("hier")))
         got = dict(hier_tensors(amg.load_hierarchy(h_path, device="cuda")))
         same = sorted(got) == sorted(want) and all(
@@ -2950,7 +3133,7 @@ def device_setups(n, counters, s3_setup_s):
     paths["pmis_direct_device"] = launches["device"]
     paths["pmis_direct_host"] = launches["host"]
     expect_launches("pmis-direct device", launches["device"],
-                    ("dia_spmv", "csr_spmv", "pcg_update"))
+                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
     setup_used = runs["device"]["setup_launches"]
     if not (setup_used["dia_spmv"] > 0 and setup_used["csr_spmv"] > 0):
         raise AssertionError("pmis device setup: λmax did not run dia_spmv "
@@ -2984,7 +3167,7 @@ def device_setups(n, counters, s3_setup_s):
     paths["structured_host"] = launches["host"]
     expect_launches("structured device", launches["device"],
                     ("const_stencil", "dia_spmv", "grid_transfer",
-                     "pcg_update"))
+                     "pcg_update", "ir_f64"))
     if runs["device"]["setup_launches"]["dia_spmv"] == 0:
         raise AssertionError("structured device setup: λmax did not run "
                              "dia_spmv")
@@ -3055,7 +3238,7 @@ def device_setups(n, counters, s3_setup_s):
         "aniso9pt_256_eps1e-3 flavor=device", op, amg.AMGParams(), grid,
         counters, flavor="device")
     expect_launches("aniso device", paths["aniso_device"],
-                    ("dia_spmv", "grid_transfer", "pcg_update"))
+                    ("dia_spmv", "grid_transfer", "pcg_update", "ir_f64"))
     axes0 = solver.hierarchy.levels[0].p.coarsened
     info = run["info"]
     print(f"aniso9pt_256_eps1e-3 device: L0 axes={axes0} inner="
@@ -3101,7 +3284,7 @@ def device_setups(n, counters, s3_setup_s):
         raise AssertionError(f"cli device-only: host planes built {built}")
     expect_launches("cli device-only", paths["cli_device_only"],
                     ("const_stencil", "dia_spmv", "grid_transfer",
-                     "pcg_update"))
+                     "pcg_update", "ir_f64"))
 
     # 15e: GPU/CPU parity of both device flavors
     m = DEVICE_PARITY_N
@@ -3141,7 +3324,7 @@ def rank_main(args) -> int:
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops import (
         const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        panel_spmm, pcg_update, remote_halo,
+        ir_f64, panel_spmm, pcg_update, remote_halo,
     )
     from omp_amg_tpu_torch.parallel.multihost import (
         global_mesh, maybe_initialize,
@@ -3157,7 +3340,8 @@ def rank_main(args) -> int:
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
                 "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer, "pcg_update": pcg_update}
+                "grid_transfer": grid_transfer, "pcg_update": pcg_update,
+                "ir_f64": ir_f64}
     n = args.n
     a = amg.poisson3d_7pt(n)
     b = amg.default_rhs(a, seed=SEED)
@@ -3383,7 +3567,7 @@ def process_mesh_paths(n, pm_run, sh_run):
                 used = ({"csr_spmv", "remote_halo", "pcg_update"}
                         if kind == "pmis" else
                         {"dia_spmv", "remote_halo", "grid_transfer",
-                         "pcg_update"})
+                         "pcg_update", "ir_f64"})
                 if t == "ppermute":
                     used -= {"remote_halo"}
                 expect_launches(label, launches, used)
@@ -3499,14 +3683,15 @@ def main() -> int:
     from omp_amg_tpu_torch import _build, native
     from omp_amg_tpu_torch.ops import (
         const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        panel_spmm, pcg_update, remote_halo,
+        ir_f64, panel_spmm, pcg_update, remote_halo,
     )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
     counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
                 "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
                 "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer, "pcg_update": pcg_update}
+                "grid_transfer": grid_transfer, "pcg_update": pcg_update,
+                "ir_f64": ir_f64}
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -3537,7 +3722,7 @@ def main() -> int:
     solver, pmis_launches, host_run = drive(f"pmis n={args.n}^3", a, pmis,
                                             None, counters)
     expect_launches("pmis", pmis_launches,
-                    ("dia_spmv", "csr_spmv", "pcg_update"))
+                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
     if pmis_launches["dia_spmv"] == host_run["scalar"]["dia_spmv"]:
         raise AssertionError("pmis: dia_spmv never took its vector path")
     for mod in counters.values():
@@ -3565,7 +3750,7 @@ def main() -> int:
                                               probe, None, counters)
     expect_launches("pmis probe", probe_launches,
                     ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes",
-                     "pcg_update"))
+                     "pcg_update", "ir_f64"))
     same_probe_values("pmis probe", solver, host)
     hi, pi = host_run["info"], probe_run["info"]
     print(f"pmis probe vs host n={args.n}^3: setup_s "
@@ -3603,6 +3788,11 @@ def main() -> int:
     rows["pcg_update"] = pcg_update_checks(rng, flush)
     pcg_where_form_checks(counters)
 
+    # phase 6d: ir_f64 kernel checks; 6e: a certified 256³ solve against
+    # the twins (the loop's torch forms)
+    rows["ir_f64"] = ir_f64_checks(rng, flush)
+    certified_twin_checks(counters)
+
     def banded_checks(tag, lv):
         dts = [torch.float32]
         if bf16_lossless(lv.a.data.float().cpu().numpy()):
@@ -3614,7 +3804,7 @@ def main() -> int:
                                    amg.AMGParams(), (args.n,) * 3, counters)
     expect_launches("structured 3D", s3_launches,
                     ("const_stencil", "dia_spmv", "grid_transfer",
-                     "pcg_update"))
+                     "pcg_update", "ir_f64"))
     for l, lv in enumerate(solver.hierarchy.levels[1:], 1):
         banded_checks(f"S3-L{l}-A", lv)
     del solver
@@ -3625,7 +3815,7 @@ def main() -> int:
     solver, s2_launches, s2_run = drive(f"structured 2D n={N2D}^2", a2,
                                    amg.AMGParams(), (N2D, N2D), counters)
     expect_launches("structured 2D", s2_launches,
-                    ("dia_spmv", "grid_transfer", "pcg_update"))
+                    ("dia_spmv", "grid_transfer", "pcg_update", "ir_f64"))
     if s2_run["scalar"]["dia_spmv"] in (0, s2_launches["dia_spmv"]):
         raise AssertionError("structured 2D: dia_spmv did not launch both "
                              f"paths ({s2_run['scalar']['dia_spmv']} scalar "
@@ -3728,7 +3918,9 @@ def main() -> int:
           f"window of phase 16b's L0 on each rank, through CUDA IPC) and "
           f"grid_transfer:{TRANSFER_N}^3:restrict:f32 (modes: all three "
           f"f32 rows) and pcg_update:{PCG_N}^3:xr:f32 (modes: xr and p, "
-          f"f32 and f64) with a cold L2; "
+          f"f32 and f64) and ir_f64:{IR_N}^3 residual (modes: residual, "
+          f"defect and update, 7-point {IR_N}^3 and 27-point {IR27_N}^3) "
+          f"with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
     print(json.dumps({"kernels": [
@@ -3769,6 +3961,13 @@ def main() -> int:
                      f"pcg_update:{PCG_N}^3:xr:f32"),
              modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us")}
                     for r in rows["pcg_update"]]),
+        dict(summary("ir_f64", "omp_amg_tpu_torch/csrc/dia_spmv.cu (f64), "
+                     "omp_amg_tpu_torch/csrc/ir_f64.cu",
+                     "none (the reference's certified loop is not Pallas)",
+                     f"ir_f64:7pt{IR_N}^3:residual"),
+             modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us",
+                                       "library_ms")}
+                    for r in rows["ir_f64"]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

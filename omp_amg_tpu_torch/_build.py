@@ -129,8 +129,8 @@ def cuda_kernels() -> ctypes.CDLL:
         # s, out, stream
         lib.csr_spmv_launch.argtypes = [i32, i32, i32, i64, i64] + [p] * 9
         lib.csr_spmv_launch.restype = i32
-        # mode, bf16, vec, n, ndiag, offsets (host int32), data, x, x_base,
-        # x_len, b, s, out, stream
+        # mode, dtype (0 f32, 1 bf16, 2 f64), vec, n, ndiag, offsets (host
+        # int32), data, x, x_base, x_len, b, s, out, stream
         lib.dia_spmv_launch.argtypes = ([i32, i32, i32, i64, i32] + [p] * 3
                                         + [i64, i64] + [p] * 4)
         lib.dia_spmv_launch.restype = i32
@@ -151,6 +151,9 @@ def cuda_kernels() -> ctypes.CDLL:
         # kind, f64, n, max_blocks, active, scalar, u, v, s, t, stream
         lib.pcg_update_launch.argtypes = [i32, i32, i64, i64] + [p] * 7
         lib.pcg_update_launch.restype = i32
+        # kind, n, max_blocks, scalar, v (f64), f (f32), stream
+        lib.ir_f64_launch.argtypes = [i32, i64, i64, ctypes.c_double] + [p] * 3
+        lib.ir_f64_launch.restype = i32
         # R, S, W, w, idx, out, stream
         lib.extract_lanes_launch.argtypes = [i64, i64, i64] + [p] * 4
         lib.extract_lanes_launch.restype = i32

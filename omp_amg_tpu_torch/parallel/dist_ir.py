@@ -34,7 +34,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..solvers.ir import IRResult, dia_apply_f64
+from ..ops import ir_f64
+from ..solvers.ir import IRResult
 from .dist import DistHierarchy, DistOp, _windows, make_dist_solver, pdot
 from .mesh import first_shard
 from .slab import SlabDia, slab_windows
@@ -42,11 +43,11 @@ from .slab import SlabDia, slab_windows
 
 @dataclass(frozen=True)
 class SlabF64:
-    """Level 0 of a z-slab hierarchy in float64: per shard its columns of
-    the user's DIA planes ``(ndiag, n_loc)``, under the user's offsets."""
+    """Level 0 of a z-slab hierarchy in float64: per shard a ``Dia`` of its
+    columns of the user's DIA planes ``(ndiag, n_loc)``, under the user's
+    offsets."""
 
     op: SlabDia                 # the hierarchy's level-0 operator (layout)
-    offsets: tuple
     blocks: tuple
 
 
@@ -101,14 +102,15 @@ def fine_f64(a, dh: DistHierarchy, device):
             data = np.asarray(_numpy(a.data), np.float64)
         else:
             offsets, data = dia_planes_from_scipy(_host_csr(a))
-            offsets = tuple(offsets)
+            offsets = tuple(int(o) for o in offsets)
         if data.shape[1] != a0.n_rows:
             raise ValueError(f"an operator of {data.shape[1]} rows for a "
                              f"level 0 of {a0.n_rows}")
         first = first_shard(a0.mesh)
         chunks = np.array_split(data, a0.nshards, axis=1)
-        return SlabF64(op=a0, offsets=offsets, blocks=tuple(
-            torch.from_numpy(np.ascontiguousarray(c)).to(device)
+        return SlabF64(op=a0, blocks=tuple(
+            Dia(data=torch.from_numpy(np.ascontiguousarray(c)).to(device),
+                offsets=offsets)
             for c in chunks[first:first + len(a0.blocks)]))
     m = _host_csr(a)
     if not isinstance(a0, DistOp):
@@ -147,9 +149,7 @@ def _f64_spmv(a64, xs):
     """y = A·x in float64: per shard over its plain-exchanged window, or on
     the full vector of a replicated level."""
     if isinstance(a64, SlabF64):
-        n_loc = xs[0].numel()
-        return [dia_apply_f64(a64.offsets, blk, w, x_base=base,
-                              n_rows=n_loc)
+        return [ir_f64.spmv(blk, w, x_base=base)
                 for blk, (w, base) in zip(a64.blocks,
                                           slab_windows(a64.op, xs,
                                                        "ppermute"))]

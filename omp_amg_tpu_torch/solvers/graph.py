@@ -66,7 +66,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops import (
-    const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
+    const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer, ir_f64,
     panel_spmm, pcg_update, remote_halo,
 )
 from ..utils.trace import span
@@ -81,7 +81,7 @@ from ..utils.trace import span
 BLOCK = 4
 
 COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-            panel_spmm, pcg_update, remote_halo)
+            ir_f64, panel_spmm, pcg_update, remote_halo)
 
 
 class Program(NamedTuple):

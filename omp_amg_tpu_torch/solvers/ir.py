@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..amg.hierarchy import Hierarchy, fine_operator
+from ..ops import ir_f64
 from ..sparse.formats import Dia
 from ..utils.trace import span
 from .cg import amg_pcg
@@ -76,23 +77,6 @@ def solve_ir(a_apply, b, a_dev, hier: Hierarchy, tol: float = 1e-8,
         return IRResult(x, len(inner_iters), inner_iters, rel, histories)
 
 
-def dia_apply_f64(offsets, data: torch.Tensor, x: torch.Tensor,
-                  x_base: int = 0, n_rows: int | None = None
-                  ) -> torch.Tensor:
-    """y = A·x in float64 for banded planes ``data`` (``data[k, i]``
-    multiplies ``x[x_base + i + offsets[k]]``; f32/bf16 planes are widened
-    exactly), taps summed in ascending order, zeros outside ``x``."""
-    n = data.shape[1] if n_rows is None else n_rows
-    lo = max(0, -min(offsets))
-    hi = max(0, max(offsets))
-    xp = torch.nn.functional.pad(x.double(), (lo, hi))
-    y = torch.zeros(n, dtype=torch.float64, device=x.device)
-    for k, off in enumerate(offsets):
-        start = x_base + off + lo
-        y = y + data[k].double() * xp[start:start + n]
-    return y
-
-
 def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
                     inner_tol: float = 1e-6, maxiter: int = 200,
                     max_outer: int = 8, variant: str = "standard",
@@ -116,12 +100,12 @@ def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
     offsets = tuple(int(o) for o in a.offsets)
     data = a.data if isinstance(a.data, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(a.data))
-    data = data.to(dev, torch.float64)
+    a64 = Dia(data=data.to(dev, torch.float64).contiguous(), offsets=offsets)
     if a_dev is None:
         a_dev = hier.levels[0].a if hier.levels else fine_operator(a, dev)
     b = b if isinstance(b, torch.Tensor) else torch.from_numpy(
         np.asarray(b, np.float64))
-    b = b.to(dev, torch.float64)
+    b = b.to(dev, torch.float64).contiguous()
     bnorm = float(torch.linalg.vector_norm(b))
     x = torch.zeros_like(b)
     inner_iters, histories = [], []
@@ -130,19 +114,19 @@ def solve_ir_device(a, b, hier: Hierarchy, tol: float = 1e-8,
         if bnorm == 0:
             break
         with span("ir.residual"):
-            r = b - dia_apply_f64(offsets, data, x)
+            r = ir_f64.residual(a64, x, b)
             rnorm = float(torch.linalg.vector_norm(r))
             rel = rnorm / bnorm
             if rel <= tol or outer == max_outer:
                 break
-            defect = (r / rnorm).float()
+            defect = ir_f64.defect(r, rnorm)
         tau = max(inner_tol, 0.3 * tol / rel)
         res = amg_pcg(a_dev, defect, hier, tol=tau,
                       maxiter=maxiter, variant=variant, graph=graph)
         inner_iters.append(res.iters)
         histories.append(res.history)
         with span("ir.update"):
-            x = x + rnorm * res.x.double()
+            ir_f64.update(x, rnorm, res.x)
     with span("ir.result"):
         x = x.cpu().numpy() if to_host else x
     return IRResult(x, len(inner_iters), inner_iters, rel, histories)
