@@ -37,7 +37,9 @@ probes every level. ``"auto"`` and ``"host"`` keep the host values: the
 reference's ``"auto"`` picks the probe only on a TPU.
 ``Hierarchy.rap_engines`` names the engine that gave each coarse operator's
 values, recorded where the values are made, and the module's
-``rap_products`` counts the products of the process by engine.
+``rap_products`` counts the products of the process by engine. Both PMIS
+setups record each level's rows and stored nonzeros on the hierarchy
+(``level_rows``, ``level_nnz``) from the host operators they hold.
 
 ``amg_setup(..., flavor="device")`` runs the setups' own kernels on
 ``device`` instead (the reference's device flavor): the PMIS setup's
@@ -109,6 +111,12 @@ class Hierarchy:
                                         # structured RAP); empty where not
                                         # known (a hierarchy loaded or
                                         # converted)
+    level_rows: Tuple[int, ...] = ()    # per level, the coarsest included:
+    level_nnz: Tuple[int, ...] = ()     # the rows and stored nonzeros of
+                                        # the operator as the setup made it
+                                        # (the fine level's true nonzeros,
+                                        # not DIA padding); recorded by the
+                                        # PMIS setups, empty elsewhere
 
     @property
     def n_levels(self) -> int:
@@ -366,6 +374,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     a_lvl = fine_operator(a, device)
 
     levels, engines = [], []   # engines: who gave each A_c its values
+    sizes = []                 # (rows, nnz) of each level's A
     host = HostSetup(ops=[a_sp], states=[], p=[])
     trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
@@ -430,6 +439,7 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
                 a_lvl, dinv, lmax,
                 csr_from_scipy(p_sp, pr_dt, device=device),
                 csr_from_scipy(pt_sp, pr_dt, device=device), params, device))
+            sizes.append(_size(a_sp))
         if cache is not None:
             cache.levels[-1]["a_kind"] = type(a_lvl).__name__
         if keep_host:
@@ -441,7 +451,8 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
         with trace.phase(f"L{len(levels)} next-planes"):
             cur_planes = ell_planes_from_scipy(ac_sp, dtype=np.float32)[:2]
 
-    hier = _finish(levels, a_sp.toarray(), params, device, engines)
+    hier = _finish(levels, a_sp.toarray(), params, device, engines,
+                   sizes + [_size(a_sp)])
     if cache is not None:
         cache.finish(hier, params)
     if keep_host:
@@ -449,17 +460,26 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     return hier
 
 
-def _finish(levels, dense, params: AMGParams, device,
-            engines) -> Hierarchy:
+def _finish(levels, dense, params: AMGParams, device, engines,
+            sizes=()) -> Hierarchy:
     """The hierarchy over ``levels`` with the coarse-solve data of the
     densified coarsest operator ``dense`` (f64 host); ``engines`` names the
-    engine of each level's Galerkin product, counted in ``rap_products``."""
+    engine of each level's Galerkin product, counted in ``rap_products``;
+    ``sizes`` the (rows, nnz) of each level's operator, the coarsest
+    included, or nothing."""
     fac = _coarse_factor(np.asarray(dense, np.float64), params)
     rap_products.update(engines)
     return Hierarchy(levels=tuple(levels),
                      coarse_chol=torch.from_numpy(
                          fac.astype(np.float32)).to(device),
-                     params=params, rap_engines=tuple(engines))
+                     params=params, rap_engines=tuple(engines),
+                     level_rows=tuple(r for r, _ in sizes),
+                     level_nnz=tuple(z for _, z in sizes))
+
+
+def _size(a_sp) -> tuple:
+    """(rows, stored nonzeros) of a scipy operator."""
+    return int(a_sp.shape[0]), int(a_sp.nnz)
 
 
 def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
@@ -500,6 +520,7 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
     a_dev = fine_operator(a, device)
 
     levels, engines = [], []   # engines: who gave each A_c its values
+    sizes = []                 # (rows, nnz) of each level's A
     host = HostSetup(ops=[a_sp], states=[], p=[])
     trace = SetupTrace()
     while (a_sp.shape[0] > params.coarse_size
@@ -548,6 +569,7 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
                                                 vals=a_dev.vals.to(pr_dt))
             levels.append(make_level(a_dev, dinv, lmax, p_dev, r_dev, params,
                                      device))
+            sizes.append(_size(a_sp))
         if keep_host:
             host.states.append(state.cpu().numpy())
             host.p.append(p_sp)
@@ -555,7 +577,8 @@ def _amg_setup_pmis_device(a, params: AMGParams, device, keep_host: bool):
         a_sp = ac_sp
         a_dev = csr_from_scipy(ac_sp, torch.float32, device=device)
 
-    hier = _finish(levels, a_sp.toarray(), params, device, engines)
+    hier = _finish(levels, a_sp.toarray(), params, device, engines,
+                   sizes + [_size(a_sp)])
     return (hier, host) if keep_host else hier
 
 

@@ -65,10 +65,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops import (
-    const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer, ir_f64,
-    panel_spmm, pcg_update, remote_halo,
-)
+from ..ops import kernel_modules
 from ..utils.trace import span
 
 # K, the PCG iterations per captured block. The certified 128³ solves run
@@ -80,8 +77,7 @@ from ..utils.trace import span
 # frozen (structured); PERF.md records the measured trade.
 BLOCK = 4
 
-COUNTERS = (const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-            ir_f64, panel_spmm, pcg_update, remote_halo)
+COUNTERS = kernel_modules()
 
 
 class Program(NamedTuple):

@@ -30,10 +30,14 @@ The spans, by layer:
   ``setup.L<l> RAP`` the host product and the probe's symbolic phase;
 - kernels (``_build.py``): ``build.<library>``, one compiler run.
 
-Counters beside the kernels' ``launches``: ``amg/hierarchy.py``'s
-``rap_products`` counts the Galerkin products of the process by the engine
-that gave their values (``host``, ``probe``, ``comb``), and each
-hierarchy's ``rap_engines`` names that engine per coarse operator.
+Counters: each kernel module's ``launches``, all read at once by
+``ops.launch_counts()`` (``{kernel module: launches}``);
+``amg/hierarchy.py``'s ``rap_products`` counts the Galerkin products of the
+process by the engine that gave their values (``host``, ``probe``,
+``comb``), and each hierarchy's ``rap_engines`` names that engine per
+coarse operator; a PMIS setup's hierarchy holds ``level_rows`` and
+``level_nnz``, each level's rows and stored nonzeros, the coarsest
+included. None of them costs anything in a solve.
 
 :class:`SetupTrace` is the setups' per-phase trace. ``OMP_AMG_SETUP_TIMERS=1``
 prints ``[setup] <label>: <s>`` to stderr per phase (the seconds since the
