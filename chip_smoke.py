@@ -18,6 +18,13 @@ Phases (each raises on failure, so the exit code is non-zero):
    ``dia_spmv`` check's path (vector or scalar) held against the launch
    counters, and both paths timed where the operands allow both
    (``paths`` lines);
+3c. ``tile_csr`` checks: on every A and R with rows of 8 lanes or more of
+   the ``pmis7_256`` and ``pmis27_128_cheby`` cells' hierarchies
+   (``poisson3d_7pt(TILE_N)`` PMIS, ``poisson3d_27pt(CHEBY_N)`` PMIS
+   Chebyshev with the probed Galerkin values), the tiled kernel bitwise the
+   CSR kernel on the same operator, against its twin, and timed beside the
+   CSR kernel (``tile`` and ``tilecmp`` lines: the rule's verdict beside
+   both kernels' µs);
 4. the PMIS main path: ``AMGSolver(A, AMGParams(coarsening="pmis"),
    device="cuda").solve(b, tol=1e-8)``; the kernel launches of one
    V-cycle, and a ``torch.profiler`` run of one warm solve (device busy
@@ -224,6 +231,7 @@ PCG_N = 256         # pcg_update checks and the where-form check: the
                     # benchmark cells' 256³
 PCG_TOL = 1e-6      # the where-form check's solve (f32 PCG)
 IR_BOUND = 0.0      # ir_f64: the certified loop's torch forms, bit for bit
+TILE_N = 256        # tile_csr rows: the pmis7_256 cell's hierarchy
 IR_N = 256          # ir_f64 rows (7-point) and the certified-solve check
 IR27_N = 128        # ir_f64 rows on the 27-point cell's 128³
 PROBE_BOUND = 0.0   # panel_spmm and extract_lanes: bitwise the twin
@@ -577,7 +585,9 @@ def pmis_kernel_checks(hier, rng, flush):
     import torch
 
     from omp_amg_tpu_torch.ops import csr_spmv
-    from omp_amg_tpu_torch.sparse.formats import Csr, Dia
+    from omp_amg_tpu_torch.sparse.formats import (
+        Csr, Dia, TileCsr, tile_to_csr,
+    )
 
     dev = hier.device
     lv0 = hier.levels[0]
@@ -587,9 +597,9 @@ def pmis_kernel_checks(hier, rng, flush):
                                    (torch.float32, torch.bfloat16)),
             "csr_spmv": []}
     for l, lv in enumerate(hier.levels):
-        ops = [("P", lv.p), ("R", lv.r)]
-        if isinstance(lv.a, Csr):
-            ops.insert(0, ("A", lv.a))
+        ops = [("P", lv.p), ("R", tile_to_csr(lv.r))]
+        if isinstance(lv.a, (Csr, TileCsr)):
+            ops.insert(0, ("A", tile_to_csr(lv.a)))
         for opname, op in ops:
             m, k = op.shape
             x, b, v = _vec(rng, k, dev), _vec(rng, m, dev), _vec(rng, m, dev)
@@ -629,6 +639,98 @@ def pmis_kernel_checks(hier, rng, flush):
                         CSR_BOUND, nbytes, flush,
                         library=library.get(mode), flops=2 * a.nnz))
             del csr, library
+    return rows
+
+
+def tile_bytes(t, m, k, vecs) -> int:
+    """Bytes the tiled kernel needs, each read once: indptr, the 16-bit
+    indices, the values, the tiles' column lists and tables, x, the row
+    vectors the mode reads and y."""
+    return (8 * (m + 1) + t.nnz * (2 + t.vals.element_size())
+            + 4 * t.tile_cols.numel() + 16 * (t.n_tiles + 1) + 4 * k
+            + 4 * m * (1 + vecs))
+
+
+def tile_csr_checks(tag, a, params, flush):
+    """The tiled CSR kernel on every A and R of ``a``'s hierarchy under
+    ``params`` with rows of at least 8 lanes (the rule's first test), in
+    its level's value type: bitwise the CSR kernel on the same operator in
+    each mode (A: spmv, residual, jacobi; R: spmv), against its twin, and
+    timed with a cold L2 beside the CSR kernel (``tile`` lines: the rule's
+    verdict, unique share, tiles, window; ``tilecmp`` lines: µs of both
+    kernels). An operator the rule keeps on ``Csr`` is timed in the form
+    it would take. Rows of the kernels line."""
+    import torch
+
+    import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.ops import csr_spmv, tile_csr as tile_ops
+    from omp_amg_tpu_torch.sparse.formats import (
+        Csr, TileCsr, tile_csr, tile_to_csr,
+    )
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    hier = amg.amg_setup(a, params, device="cuda")
+    print(f"tile setup {tag} s={time.perf_counter() - t0:.1f} "
+          f"tiled={hier.tiled} nnz_share={hier.tiled_nnz_share:.4f}",
+          flush=True)
+    rows = []
+    for l, lv in enumerate(hier.levels):
+        for opname, op in (("A", lv.a), ("R", lv.r)):
+            if not isinstance(op, (Csr, TileCsr)):
+                continue
+            c = tile_to_csr(op)
+            if c.vec < 8:
+                continue
+            taken = isinstance(op, TileCsr)
+            t = op if taken else tile_csr(c)
+            if t is None:
+                print(f"tile {tag} L{l}-{opname}: no tiled form", flush=True)
+                continue
+            m, k = c.shape
+            vt = "bf16" if c.vals.dtype == torch.bfloat16 else "f32"
+            print(f"tile {tag} L{l}-{opname}:{vt} rows={m} nnz={c.nnz} "
+                  f"V={c.vec} rule={'tiled' if taken else 'csr'} "
+                  f"unique_share={t.unique_share:.4f} tiles={t.n_tiles} "
+                  f"window={t.window}", flush=True)
+            x, b, s = (_vec(rng, k, "cuda"), _vec(rng, m, "cuda"),
+                       lv.s if opname == "A" else None)
+            modes = {"spmv": ((x,), 0)}
+            if opname == "A":
+                modes.update(residual=((x, b), 1), jacobi=((x, b, s), 2))
+            for mode, (args, vecs) in modes.items():
+                def kern(mode=mode, args=args):
+                    return getattr(tile_ops, mode)(t, *args)
+
+                def csr(mode=mode, args=args):
+                    return getattr(csr_spmv, mode)(c, *args)
+                got, want = kern(), csr()
+                torch.cuda.synchronize()
+                name = (f"tile_csr:{tag}:L{l}-{opname}:{vt}:{mode}:rows={m}:"
+                        f"nnz={c.nnz}:V={c.vec}")
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{name}: not the CSR kernel's bits (max|Δ| "
+                        f"{float((got - want).abs().max()):.3e})")
+                nbytes = tile_bytes(t, m, k, vecs)
+                row = compare(
+                    name, kern, lambda mode=mode, args=args:
+                    tile_ops.tile_csr_plain(
+                        t, args[0], mode,
+                        b=args[1] if len(args) > 1 else None,
+                        s=args[2] if len(args) > 2 else None),
+                    CSR_BOUND, nbytes, flush, flops=2 * c.nnz)
+                rows.append(row)
+                csr_ms = cuda_ms(csr, flush=flush)
+                print(f"tilecmp {name} rule={'tiled' if taken else 'csr'} "
+                      f"tiles={t.n_tiles} unique_share={t.unique_share:.4f} "
+                      f"tile_us={row['ms'] * 1e3:.2f} "
+                      f"csr_us={csr_ms * 1e3:.2f} "
+                      f"ratio={row['ms'] / csr_ms:.4f} bound_us="
+                      f"{nbytes / PEAK[0] * 1e6:.2f}", flush=True)
+            del t, c, x, b
+    del hier
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1192,8 +1294,24 @@ def drive(label, a, params, grid, counters, vcycle=None, solve_kw=None,
                                   scipy_rel=host_rel)
 
 
-def expect_launches(label, launches, used):
-    """Every kernel in ``used`` launched, every other one not."""
+def kernel_counters() -> dict:
+    """{name: module} of every kernel module of the port with a launch
+    counter (``ops.kernel_modules()``)."""
+    from omp_amg_tpu_torch.ops import kernel_modules
+
+    return {m.__name__.rsplit(".", 1)[1]: m for m in kernel_modules()}
+
+
+def expect_launches(label, launches, used, hier=None):
+    """Every kernel in ``used`` launched, every other one not; the tiled
+    CSR kernel counts as used where the path's hierarchy ``hier`` holds an
+    operator in the tiled form, and must not launch elsewhere."""
+    from omp_amg_tpu_torch.sparse.formats import TileCsr
+
+    if hier is not None and any(
+            isinstance(getattr(lv, name, None), TileCsr)
+            for lv in hier.levels for name in ("a", "r")):
+        used = (*used, "tile_csr")
     for name, count in launches.items():
         if (count > 0) != (name in used):
             raise AssertionError(f"{label}: {name} launched {count} times; "
@@ -1680,13 +1798,15 @@ def pmis27_kernel_checks(hier, rng, flush):
     import torch
 
     from omp_amg_tpu_torch.ops import csr_spmv
+    from omp_amg_tpu_torch.sparse.formats import tile_to_csr
 
     lv0, lv1 = hier.levels[0], hier.levels[1]
     rows = {"dia_spmv": dia_checks("P27-L0-A", lv0.a, lv0.s, rng, flush,
                                    (lv0.a.data.dtype,)),
             "csr_spmv": []}
     dev = hier.device
-    for opname, op in (("A", lv1.a), ("P", lv1.p), ("R", lv1.r)):
+    for opname, op in (("A", tile_to_csr(lv1.a)), ("P", lv1.p),
+                       ("R", tile_to_csr(lv1.r))):
         m, k = op.shape
         x, b, v = _vec(rng, k, dev), _vec(rng, m, dev), _vec(rng, m, dev)
         csr = library_csr(op.indptr, op.indices, op.vals, op.shape)
@@ -1749,7 +1869,7 @@ def cheby_configs(counters, rng, flush):
             rows.update(more)
             host_products = hierarchy.rap_products["host"]
         solver, launches, run = drive(label, a, params, g, counters)
-        expect_launches(label, launches, used)
+        expect_launches(label, launches, used, hier=solver.hierarchy)
         info = run["info"]
         check_certified(label, info, run["scipy_rel"])
         rec = TPU_RECORD_CHEBY[pipeline.split()[0]]
@@ -2125,7 +2245,7 @@ def refresh_value_error(h, want) -> float:
     for dinv."""
     import torch
 
-    from omp_amg_tpu_torch.sparse.formats import Csr
+    from omp_amg_tpu_torch.sparse.formats import Csr, TileCsr
 
     if len(h.levels) != len(want.levels):
         raise AssertionError("refresh: level count differs from fresh")
@@ -2135,7 +2255,7 @@ def refresh_value_error(h, want) -> float:
                                         / np.abs(lw.dinv))))
         for name in ("a", "p", "r"):
             og, ow = getattr(lg, name), getattr(lw, name)
-            if isinstance(ow, Csr):
+            if isinstance(ow, (Csr, TileCsr)):
                 if not (torch.equal(og.indptr, ow.indptr)
                         and torch.equal(og.indices, ow.indices)):
                     raise AssertionError(f"refresh: L{l} {name}'s pattern "
@@ -2192,7 +2312,7 @@ def refresh_paths(counters):
     torch.cuda.synchronize()
     launches = read()
     expect_launches("refresh128", launches,
-                    ("dia_spmv", "csr_spmv", "pcg_update"))
+                    ("dia_spmv", "csr_spmv", "pcg_update"), hier=h)
     shared = all(
         getattr(lv, name).indptr.data_ptr()
         == getattr(l0, name).indptr.data_ptr()
@@ -2268,7 +2388,7 @@ def refresh_paths(counters):
           f"launches={ {k: v for k, v in launches.items() if v} }",
           flush=True)
     expect_launches(label, launches, ("dia_spmv", "csr_spmv", "pcg_update",
-                                      "ir_f64"))
+                                      "ir_f64"), hier=solver.hierarchy)
     check_certified(label, info, rel)
     if tripped:
         raise AssertionError(f"{label}: the refresh fell back to a fresh "
@@ -2313,7 +2433,7 @@ def cli_paths(counters):
                 summary["true_rel_residual"] > 1e-8:
             raise AssertionError(f"cli {label}: not certified on the card")
 
-    def run(label, args, used):
+    def run(label, args, used, hier=lambda: None):
         reset_counters(counters)
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -2324,7 +2444,7 @@ def cli_paths(counters):
             raise AssertionError(f"cli {label}: exit code {rc}")
         summary = json.loads(out.getvalue().strip().splitlines()[-1])
         report(label, summary, launches)
-        expect_launches(f"cli {label}", launches, used)
+        expect_launches(f"cli {label}", launches, used, hier=hier())
         return summary, launches
 
     n = CLI_N
@@ -2349,15 +2469,18 @@ def cli_paths(counters):
             first, paths["cli_pmis_save"] = run(
                 f"3d7pt n={n} pmis --save-hierarchy",
                 pmis + ["--save-hierarchy", h_path],
-                ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
+                ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"),
+                hier=lambda: saved["hier"])
         finally:
             amg_io.save_hierarchy = save
+        back = amg.load_hierarchy(h_path, device="cuda")
         loaded, paths["cli_pmis_load"] = run(
             f"3d7pt n={n} pmis --load-hierarchy",
             pmis + ["--load-hierarchy", h_path],
-            ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
+            ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"),
+            hier=lambda: back)
         want = dict(hier_tensors(saved.pop("hier")))
-        got = dict(hier_tensors(amg.load_hierarchy(h_path, device="cuda")))
+        got = dict(hier_tensors(back))
         same = sorted(got) == sorted(want) and all(
             got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
             for k in want)
@@ -2493,7 +2616,8 @@ def pmis_mesh_path(n, counters, flush, rng):
                                   vcycle=precondition, mesh=mesh,
                                   transport="remote", refreshable=True)
     expect_launches(label, launches,
-                    ("csr_spmv", "remote_halo", "pcg_update"))
+                    ("csr_spmv", "remote_halo", "pcg_update"),
+                    hier=solver.hierarchy)
     paths["pmis_mesh"] = launches
     dh = solver.hierarchy
     print(f"{label} stats={solver.stats()} modes="
@@ -2940,13 +3064,15 @@ def captured_paths(n, counters, mesh_solver):
 
 def sparse_api_checks(n, rng):
     """Phase 14: the public sparse API on the card: ``spmv_dia`` and
-    ``spmv_csr`` on the PMIS n³ levels 0 and 1 (and the constructors'
+    ``spmv_csr`` on the PMIS n³ levels 0 and 1 (level 1's A as its global
+    CSR where the rule gave it the tiled form; and the constructors'
     default device) against the kernels' twins, each launching its kernel
     once."""
     import torch
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch.ops import csr_spmv, dia_spmv
+    from omp_amg_tpu_torch.sparse.formats import tile_to_csr
 
     a = amg.poisson3d_7pt(n)
     hier = amg.amg_setup(a, amg.AMGParams(coarsening="pmis"), device="cuda")
@@ -2963,7 +3089,7 @@ def sparse_api_checks(n, rng):
         raise AssertionError("sparse API: coo_to_csr did not sum duplicates")
     cases = [("spmv_dia", "L0-A", hier.levels[0].a, dia_spmv,
               lambda op, x: dia_spmv.dia_spmv_plain(op, x), DIA_BOUND),
-             ("spmv_csr", "L1-A", hier.levels[1].a, csr_spmv,
+             ("spmv_csr", "L1-A", tile_to_csr(hier.levels[1].a), csr_spmv,
               lambda op, x: csr_spmv.csr_spmv_plain(op, x), CSR_BOUND),
              ("spmv_dia", "built", built["dia_from_scipy"], dia_spmv,
               lambda op, x: dia_spmv.dia_spmv_plain(op, x), DIA_BOUND),
@@ -2993,12 +3119,13 @@ def level_tensors(op):
     import torch
 
     import omp_amg_tpu_torch as amg
+    from omp_amg_tpu_torch.sparse.formats import TileCsr
 
     if isinstance(op, amg.ConstDia):
         return [torch.tensor(op.coeffs, dtype=torch.float64)]
     if isinstance(op, amg.Dia):
         return [op.data]
-    if isinstance(op, amg.Csr):
+    if isinstance(op, (amg.Csr, TileCsr)):
         return [op.indptr, op.indices, op.vals]
     return []
 
@@ -3133,7 +3260,8 @@ def device_setups(n, counters, s3_setup_s):
     paths["pmis_direct_device"] = launches["device"]
     paths["pmis_direct_host"] = launches["host"]
     expect_launches("pmis-direct device", launches["device"],
-                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
+                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"),
+                    hier=kept["device"][0])
     setup_used = runs["device"]["setup_launches"]
     if not (setup_used["dia_spmv"] > 0 and setup_used["csr_spmv"] > 0):
         raise AssertionError("pmis device setup: λmax did not run dia_spmv "
@@ -3322,10 +3450,7 @@ def rank_main(args) -> int:
     import torch
 
     import omp_amg_tpu_torch as amg
-    from omp_amg_tpu_torch.ops import (
-        const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        ir_f64, panel_spmm, pcg_update, remote_halo,
-    )
+    from omp_amg_tpu_torch.ops import remote_halo
     from omp_amg_tpu_torch.parallel.multihost import (
         global_mesh, maybe_initialize,
     )
@@ -3337,11 +3462,7 @@ def rank_main(args) -> int:
     if not maybe_initialize():
         raise RuntimeError("phase 16 rank without the OMP_AMG_* env gate")
     mesh = global_mesh(PROC_LOCAL)
-    counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
-                "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
-                "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer, "pcg_update": pcg_update,
-                "ir_f64": ir_f64}
+    counters = kernel_counters()
     n = args.n
     a = amg.poisson3d_7pt(n)
     b = amg.default_rhs(a, seed=SEED)
@@ -3681,17 +3802,9 @@ def main() -> int:
 
     import omp_amg_tpu_torch as amg
     from omp_amg_tpu_torch import _build, native
-    from omp_amg_tpu_torch.ops import (
-        const_stencil, csr_spmv, dia_spmv, extract_lanes, grid_transfer,
-        ir_f64, panel_spmm, pcg_update, remote_halo,
-    )
     from omp_amg_tpu_torch.sparse.formats import bf16_lossless
 
-    counters = {"const_stencil": const_stencil, "dia_spmv": dia_spmv,
-                "csr_spmv": csr_spmv, "panel_spmm": panel_spmm,
-                "extract_lanes": extract_lanes, "remote_halo": remote_halo,
-                "grid_transfer": grid_transfer, "pcg_update": pcg_update,
-                "ir_f64": ir_f64}
+    counters = kernel_counters()
 
     # phase 2: builds
     t0 = time.perf_counter()
@@ -3717,12 +3830,23 @@ def main() -> int:
     rows = pmis_kernel_checks(hier, rng, flush)
     del hier
 
+    # phase 3c: the tiled CSR kernel on the long-row operators of the
+    # pmis7_256 and pmis27_128_cheby cells' hierarchies
+    rows["tile_csr"] = (
+        tile_csr_checks(f"7pt{TILE_N}", amg.poisson3d_7pt(TILE_N), pmis,
+                        flush)
+        + tile_csr_checks(f"27pt{CHEBY_N}", amg.poisson3d_27pt(CHEBY_N),
+                          amg.AMGParams(coarsening="pmis",
+                                        smoother="chebyshev", rap="probe"),
+                          flush))
+
     # phase 4: the PMIS main path, the launches of one V-cycle, and a
     # profile of one warm solve
     solver, pmis_launches, host_run = drive(f"pmis n={args.n}^3", a, pmis,
                                             None, counters)
     expect_launches("pmis", pmis_launches,
-                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"))
+                    ("dia_spmv", "csr_spmv", "pcg_update", "ir_f64"),
+                    hier=solver.hierarchy)
     if pmis_launches["dia_spmv"] == host_run["scalar"]["dia_spmv"]:
         raise AssertionError("pmis: dia_spmv never took its vector path")
     for mod in counters.values():
@@ -3750,7 +3874,7 @@ def main() -> int:
                                               probe, None, counters)
     expect_launches("pmis probe", probe_launches,
                     ("dia_spmv", "csr_spmv", "panel_spmm", "extract_lanes",
-                     "pcg_update", "ir_f64"))
+                     "pcg_update", "ir_f64"), hier=solver.hierarchy)
     same_probe_values("pmis probe", solver, host)
     hi, pi = host_run["info"], probe_run["info"]
     print(f"pmis probe vs host n={args.n}^3: setup_s "
@@ -3920,6 +4044,8 @@ def main() -> int:
           f"f32 rows) and pcg_update:{PCG_N}^3:xr:f32 (modes: xr and p, "
           f"f32 and f64) and ir_f64:{IR_N}^3 residual (modes: residual, "
           f"defect and update, 7-point {IR_N}^3 and 27-point {IR27_N}^3) "
+          f"and tile_csr:7pt{TILE_N}:L1-A:bf16:jacobi (modes: every "
+          f"operator of phase 3c) "
           f"with a cold L2; "
           f"max_abs_err is the largest over all checks; bounds against "
           f"{PEAK[2]} peaks, this card {card}", flush=True)
@@ -3968,6 +4094,12 @@ def main() -> int:
              modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us",
                                        "library_ms")}
                     for r in rows["ir_f64"]]),
+        dict(summary("tile_csr", "omp_amg_tpu_torch/csrc/tile_csr.cu",
+                     "none (a second form of "
+                     "omp_amg_tpu/ops/pallas_routed.py:101's product)",
+                     f"tile_csr:7pt{TILE_N}:L1-A:bf16:jacobi"),
+             modes=[{k: r[k] for k in ("name", "ms", "plain_ms", "bound_us")}
+                    for r in rows["tile_csr"]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

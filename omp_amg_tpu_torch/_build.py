@@ -129,6 +129,10 @@ def cuda_kernels() -> ctypes.CDLL:
         # s, out, stream
         lib.csr_spmv_launch.argtypes = [i32, i32, i32, i64, i64] + [p] * 9
         lib.csr_spmv_launch.restype = i32
+        # mode, bf16, vec, n_tiles, window, tile_rows, tile_ptr, tile_cols,
+        # indptr, indices, vals, x, v, b, s, out, stream
+        lib.tile_csr_launch.argtypes = [i32, i32, i32, i64, i32] + [p] * 12
+        lib.tile_csr_launch.restype = i32
         # mode, dtype (0 f32, 1 bf16, 2 f64), vec, n, ndiag, offsets (host
         # int32), data, x, x_base, x_len, b, s, out, stream
         lib.dia_spmv_launch.argtypes = ([i32, i32, i32, i64, i32] + [p] * 3

@@ -10,7 +10,10 @@ reference's. Only the device forms differ:
 - PMIS: the fine A stays banded (``Dia``, diagonal-major), in bf16 when
   that cast is lossless, else f32; coarse A, P and R become ``Csr`` with f32
   values, or bf16 at levels of n ≥ 2²² rows (the reference's routed-ELL
-  rule, fixed here);
+  rule, fixed here); on the card, an A or R of long rows whose
+  neighbouring rows share their columns then takes the tiled form
+  (``TileCsr``, the rule ``tile_rule``, applied in ``make_level``),
+  recorded in ``Hierarchy.tiled``;
 - structured: a masked-constant 3D level becomes a ``ConstDia`` (the
   reference's detection rule), every other level a ``Dia`` as above; P and R
   are the grid transfers. The reference's TPU-only ``PlaneDia`` form is not
@@ -61,9 +64,10 @@ import numpy as np
 import torch
 
 from ..sparse.formats import (
-    ConstDia, Csr, Dia, _numpy, csr_from_scipy, dia_planes_from_scipy,
-    dia_to_device, dia_to_scipy, ell_planes, ell_planes_from_dia,
-    ell_planes_from_scipy, ell_planes_to_scipy, to_const_dia,
+    ConstDia, Csr, Dia, TileCsr, _numpy, csr_from_scipy,
+    dia_planes_from_scipy, dia_to_device, dia_to_scipy, ell_planes,
+    ell_planes_from_dia, ell_planes_from_scipy, ell_planes_to_scipy,
+    tiled_form, to_const_dia,
 )
 from ..utils.device import resolve_device
 from ..utils.trace import SetupTrace
@@ -126,6 +130,38 @@ class Hierarchy:
     def device(self) -> torch.device:
         return self.coarse_chol.device
 
+    @property
+    def tiled(self) -> Tuple[Tuple[int, str, float], ...]:
+        """(level, operator "a" or "r", unique share) of every operator in
+        the tiled form (``TileCsr``): how often the rule engaged."""
+        return tuple((l, name, op.unique_share)
+                     for l, lv in enumerate(self.levels)
+                     for name, op in (("a", lv.a), ("r", lv.r))
+                     if isinstance(op, TileCsr))
+
+    @property
+    def tiled_nnz_share(self) -> float:
+        """The share of the stored nonzeros of every level's A, P and R that
+        sit in the tiled form. Stored: a ``Csr``'s or ``TileCsr``'s
+        nonzeros, a ``Dia``'s nonzero plane entries (the recorded
+        ``level_nnz`` where the setup kept it); the matrix-free ``ConstDia``
+        and grid transfers store none."""
+        def stored(op, l=None):
+            if isinstance(op, (Csr, TileCsr)):
+                return op.nnz
+            if isinstance(op, Dia):
+                if l is not None and l < len(self.level_nnz):
+                    return self.level_nnz[l]
+                return int((torch.as_tensor(op.data) != 0).sum())
+            return 0
+        total = tiled = 0
+        for l, lv in enumerate(self.levels):
+            for op in (lv.a, lv.p, lv.r):
+                n = stored(op, l if op is lv.a else None)
+                total += n
+                tiled += n if isinstance(op, TileCsr) else 0
+        return tiled / total if total else 0.0
+
 
 def check_supported(params: AMGParams) -> None:
     """Raise for parameter values the port does not implement: it runs the
@@ -183,11 +219,15 @@ def device_scale(a, v, device):
 
 def make_level(a, dinv, lmax, p, r, params: AMGParams, device) -> Level:
     """Level from its device operators, ``dinv`` (a host f64/f32 array, or
-    an f32 tensor on the device from the device setups) and ``lmax``."""
+    an f32 tensor on the device from the device setups) and ``lmax``. A
+    ``Csr`` A or R on the card takes the tiled form where the rule on the
+    operator gives it (:func:`tiled_form`); the level then holds that form
+    in place of the ``Csr``."""
     if isinstance(dinv, torch.Tensor):
         dinv = dinv.to(device, torch.float32)
     else:
         dinv = np.asarray(dinv, np.float32)
+    a, r = tiled_form(a), tiled_form(r)
     return Level(
         a=a, p=p, r=r, dinv=dinv, lmax=float(np.float32(lmax)),
         s=device_scale(a, jacobi_scale(dinv, lmax, params), device),

@@ -3,9 +3,10 @@
 Counterpart of ``omp_amg_tpu/ops/spmv.py`` (``spmv``, ``residual``): a
 ``ConstDia`` goes to the matrix-free stencil kernel (:mod:`.const_stencil`),
 a banded ``Dia`` to the DIA kernel (:mod:`.dia_spmv`), a ``Csr`` to the CSR
-kernel (:mod:`.csr_spmv`), and the structured grid transfers
-(``GridProlong``, ``GridRestrict``) to the grid-transfer kernel
-(:mod:`.grid_transfer`) on CUDA tensors; the per-axis slice forms of
+kernel (:mod:`.csr_spmv`), a ``TileCsr`` (the tiled form of the long-row
+PMIS operators) to the tiled-CSR kernel (:mod:`.tile_csr`), and the
+structured grid transfers (``GridProlong``, ``GridRestrict``) to the
+grid-transfer kernel (:mod:`.grid_transfer`) on CUDA tensors; the per-axis slice forms of
 :mod:`..amg.structured` are that kernel's plain twin, which CPU tensors
 run. The fused residual and Jacobi epilogues are
 dispatched the same way; on a ``ConstDia`` the Jacobi scale ``s`` is one
@@ -19,8 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..amg.structured import GridProlong, GridRestrict
-from ..sparse.formats import ConstDia, Csr, Dia
-from . import const_stencil, csr_spmv, dia_spmv, grid_transfer
+from ..sparse.formats import ConstDia, Csr, Dia, TileCsr
+from . import const_stencil, csr_spmv, dia_spmv, grid_transfer, tile_csr
 
 
 def _kernel_module(a):
@@ -30,6 +31,8 @@ def _kernel_module(a):
         return dia_spmv
     if isinstance(a, Csr):
         return csr_spmv
+    if isinstance(a, TileCsr):
+        return tile_csr
     raise TypeError(f"unsupported operator {type(a).__name__}")
 
 

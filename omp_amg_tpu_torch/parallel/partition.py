@@ -45,7 +45,7 @@ from ..amg.hierarchy import Hierarchy, jacobi_scale
 from ..amg.structured import GridProlong, GridRestrict, prolong_to_scipy
 from ..sparse.formats import (
     ConstDia, Csr, Dia, bf16_lossless, const_to_dia, csr_from_ell,
-    ell_planes_from_dia, ell_planes_from_scipy,
+    ell_planes_from_dia, ell_planes_from_scipy, tile_to_csr,
 )
 from .dist import DistHierarchy, DistLevel, DistOp, _block_rows
 from .slab import SlabDia, SlabProlong, SlabRestrict, slab_halos
@@ -209,8 +209,8 @@ def make_dist_op(col, val, *, ndev: int, out_sharded: bool, in_sharded: bool,
 
 def host_ell(op) -> tuple:
     """Host ``(col, val, n_cols)`` ELL planes of a level operator of a port
-    hierarchy (a ``Csr``, ``Dia`` or ``ConstDia``, or a grid transfer,
-    materialised as the reference's ``_ell_np`` does)."""
+    hierarchy (a ``Csr`` or ``TileCsr``, ``Dia`` or ``ConstDia``, or a grid
+    transfer, materialised as the reference's ``_ell_np`` does)."""
     if isinstance(op, (GridProlong, GridRestrict)):
         p = op if isinstance(op, GridProlong) else GridProlong(
             fine_shape=op.fine_shape, coarse_shape=op.coarse_shape,
@@ -225,6 +225,7 @@ def host_ell(op) -> tuple:
         return ell_planes_from_dia(op, dtype=np.float32)
     import scipy.sparse as sp
 
+    op = tile_to_csr(op)
     m = sp.csr_matrix((op.vals.float().cpu().numpy(),
                        op.indices.cpu().numpy(), op.indptr.cpu().numpy()),
                       shape=op.shape)

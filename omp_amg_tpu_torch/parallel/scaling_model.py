@@ -66,7 +66,8 @@ def _value_bytes(t) -> int:
 def _op_bytes_per_nnz(op) -> float:
     """Streamed operator bytes per nonzero for the solve-path product:
     ``Csr`` its value bytes, the int32 column and its share of the int64
-    ``indptr``; ``Dia`` its planes' value bytes; ``ConstDia`` none (the
+    ``indptr``; ``TileCsr`` the same with a 16-bit index plus its tiles'
+    int32 column lists; ``Dia`` its planes' value bytes; ``ConstDia`` none (the
     kernel reads vectors only); ``SlabDia`` and ``DistOp`` their per-shard
     blocks'."""
     name = type(op).__name__
@@ -75,6 +76,10 @@ def _op_bytes_per_nnz(op) -> float:
     if name == "Csr":
         nnz = max(op.nnz, 1)
         return _value_bytes(op.vals) + 4 + 8 * (op.n_rows + 1) / nnz
+    if name == "TileCsr":   # 16-bit index, and the tiles' column lists
+        nnz = max(op.nnz, 1)
+        return (_value_bytes(op.vals) + 2 + 4 * op.unique_share
+                + 8 * (op.n_rows + 1) / nnz)
     if name == "Dia":
         return float(_value_bytes(op.data))
     if name == "SlabDia":
@@ -119,9 +124,10 @@ def scaling_report(hier, grid=None, ndev_list=(1, 2, 4, 8, 16),
     shards it as the distributed setups do, ``family="slab"`` (z-plane
     slabs, plane halo exchanges) or ``family="pmis"`` (row blocks with
     strip halos), at each device count with the weak-scaled problem.
-    ``family="auto"`` picks pmis when any level operator is a ``Csr`` or a
-    ``DistOp``, or no grid is given. ``measured_t_cycle_ms`` (one card's
-    V-cycle) calibrates the absolute scale; efficiencies are scale-free.
+    ``family="auto"`` picks pmis when any level operator is a ``Csr``, a
+    ``TileCsr`` or a ``DistOp``, or no grid is given.
+    ``measured_t_cycle_ms`` (one card's V-cycle) calibrates the absolute
+    scale; efficiencies are scale-free.
     The ``_lo``/``_hi`` band takes the link constants (an assumption, not a
     measurement) ±2×.
     """
@@ -129,7 +135,7 @@ def scaling_report(hier, grid=None, ndev_list=(1, 2, 4, 8, 16),
     nu = params.nu_pre + params.nu_post
     spmv_per_cycle = nu + 1
     if family == "auto":
-        general = any(type(lv.a).__name__ in ("Csr", "DistOp")
+        general = any(type(lv.a).__name__ in ("Csr", "TileCsr", "DistOp")
                       for lv in hier.levels)
         family = "pmis" if (general or grid is None) else "slab"
 

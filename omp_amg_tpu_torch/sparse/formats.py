@@ -11,6 +11,12 @@ Counterpart of ``omp_amg_tpu/sparse/formats.py`` (``Dia``, ``Csr``,
   bf16) for the general-sparsity levels (coarse A, P, R). On the GPU a gather
   is an ordinary load, so CSR replaces the reference's ELL and routed-ELL
   device forms.
+- ``TileCsr``: the tiled form of a ``Csr`` with long rows whose neighbouring
+  rows share their columns (the coarse PMIS A): tiles of consecutive rows,
+  each with the sorted list of its distinct columns, and 16-bit column
+  indices into the tile's list. ``tile_rule`` is the rule that gives it,
+  ``tiled_form`` applies the rule on the card, ``tile_csr`` builds the form
+  on the operator's device, ``tile_to_csr`` decodes.
 - ``ConstDia``: a matrix-free masked-constant 3D stencil (coefficients and
   taps only). The reference's ``(nmask, plane/128, 128)`` validity masks
   exist for the TPU's VMEM lanes; here a tap's validity is index arithmetic
@@ -85,16 +91,209 @@ class Csr:
 
     @functools.cached_property
     def vec(self) -> int:
-        """Lanes per row of the CSR kernel: the largest power of two at or
-        below half the mean row length ``nnz / n_rows``, from 1 to 32 (a
-        warp). Each lane then takes about two nonzeros of a row: on the H100
-        a lane per nonzero or more spends more instructions per row than the
-        loads it saves (``PERF.md``). A host rule on the sizes, so it needs
-        no device sync."""
-        v = 1
-        while v < 32 and 4 * v * max(self.n_rows, 1) <= self.nnz:
-            v *= 2
-        return v
+        """Lanes per row of the CSR kernel (:func:`lanes_per_row`)."""
+        return lanes_per_row(self.n_rows, self.nnz)
+
+
+def lanes_per_row(n_rows: int, nnz: int) -> int:
+    """Lanes per row of the CSR and tiled-CSR kernels: the largest power of
+    two at or below half the mean row length ``nnz / n_rows``, from 1 to 32
+    (a warp). Each lane then takes about two nonzeros of a row: on the H100
+    a lane per nonzero or more spends more instructions per row than the
+    loads it saves (``PERF.md``). A host rule on the sizes, so it needs no
+    device sync."""
+    v = 1
+    while v < 32 and 4 * v * max(n_rows, 1) <= nnz:
+        v *= 2
+    return v
+
+
+@dataclass(frozen=True)
+class TileCsr:
+    """Tiled CSR: a ``Csr`` whose rows are cut into tiles of consecutive
+    rows, each tile holding the sorted distinct global columns its rows
+    touch (``tile_cols[tile_ptr[t]:tile_ptr[t + 1]]``), and each nonzero a
+    16-bit index into its tile's list (``indices``, int16 storage read as
+    unsigned). ``indptr`` and ``vals`` are the CSR's, in its nonzero order
+    and value type, so a refresh's new values drop in unchanged. The tiled
+    kernel (``ops/tile_csr.py``) holds a tile's x window ``x[tile_cols]`` in
+    shared memory; ``window`` is the most distinct columns of a tile. Made
+    by :func:`tile_csr`, undone by :func:`tile_to_csr`."""
+
+    indptr: torch.Tensor     # (n_rows + 1,) int64
+    indices: torch.Tensor    # (nnz,) int16: column within the tile's list
+    vals: torch.Tensor       # (nnz,) float32 | bfloat16
+    n_cols: int
+    tile_rows: torch.Tensor  # (n_tiles + 1,) int64: first row of each tile
+    tile_ptr: torch.Tensor   # (n_tiles + 1,) int64: into tile_cols
+    tile_cols: torch.Tensor  # (Σ distinct,) int32: sorted within a tile
+    window: int              # the most distinct columns of a tile
+
+    @property
+    def n_rows(self) -> int:
+        return self.indptr.numel() - 1
+
+    @property
+    def nnz(self) -> int:
+        return self.indices.numel()
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tile_rows.numel() - 1
+
+    @property
+    def unique_share(self) -> float:
+        """Distinct columns summed over the tiles, over the nonzeros: the
+        share of the nonzeros whose x the kernel gathers from memory."""
+        return self.tile_cols.numel() / max(self.nnz, 1)
+
+    @functools.cached_property
+    def vec(self) -> int:
+        """Lanes per row (:func:`lanes_per_row`), as the CSR kernel's."""
+        return lanes_per_row(self.n_rows, self.nnz)
+
+
+# The tiled form's rule (``tile_rule``), from the H100 (PERF.md §6): rows
+# of at least this mean length (V ≥ 8 lanes), operators of at least this
+# many nonzeros, and tiles whose distinct columns are at most this share of
+# their nonzeros. The size: the tiled kernel took 0.72–0.90× the CSR
+# kernel's time on the coarse A from 27 M nonzeros up, but 0.95–1.16× from
+# 7.9 M to 13.3 M (the 27-point 128³ A₁ 1.01–1.16×) and 1.3–3.3× at
+# 3.3 M and below, where too few tiles fill the card
+TILE_MIN_ROW_LEN = 16
+TILE_MIN_NNZ = 1 << 24
+TILE_MAX_UNIQUE_SHARE = 1 / 3
+# a tile: at most this many distinct columns (its x window, f32 in shared
+# memory, 24 KiB) and about this many nonzeros (the fastest of the shapes
+# timed at 256³: 2,048–12,288 columns, 8–32 k nonzeros); a 16-bit index
+# reaches 65,536 columns
+TILE_WINDOW = 6144
+TILE_NNZ = 1 << 14
+TILE_MAX_COLS = 1 << 16
+_BUILD_CHUNK = 1 << 24        # nonzeros sorted at once by the builder
+
+
+def _tile_rows(indptr: torch.Tensor, target: int) -> torch.Tensor:
+    """First rows of tiles of about ``target`` nonzeros: row r opens a tile
+    where ``indptr[r] // target`` steps; the last row is appended."""
+    n = indptr.numel() - 1
+    key = torch.div(indptr[:-1], target, rounding_mode="floor")
+    opens = torch.ones(n, dtype=torch.bool, device=indptr.device)
+    opens[1:] = key[1:] != key[:-1]
+    ends = torch.tensor([n], dtype=torch.int64, device=indptr.device)
+    return torch.cat([opens.nonzero().squeeze(1), ends])
+
+
+def _local_columns(a: Csr, tile_rows: torch.Tensor):
+    """(16-bit local indices, stored as int16, distinct columns per tile,
+    the sorted distinct columns) of ``a``'s nonzeros on the tiles
+    ``tile_rows``: sorts of (tile, column) keys, ``_BUILD_CHUNK`` nonzeros
+    of whole tiles at a time (the int64 temporaries of one chunk at a
+    time). A tile of more than 65,536 columns gives wrapped indices: the
+    caller splits it."""
+    dev = a.indptr.device
+    bounds = a.indptr[tile_rows]                       # nonzero bounds
+    tnnz = bounds.diff()
+    # whole tiles per chunk: a tile joins the chunk its first nonzero is in
+    cut = torch.div(bounds[:-1], _BUILD_CHUNK, rounding_mode="floor")
+    first = torch.ones_like(cut, dtype=torch.bool)
+    first[1:] = cut[1:] != cut[:-1]
+    chunk_tiles = torch.cat([first.nonzero().squeeze(1),
+                             torch.tensor([cut.numel()], device=dev)]).tolist()
+    local, counts, cols = [], [], []
+    for t0, t1 in zip(chunk_tiles[:-1], chunk_tiles[1:]):
+        s, e = int(bounds[t0]), int(bounds[t1])
+        tile = torch.repeat_interleave(
+            torch.arange(t1 - t0, device=dev), tnnz[t0:t1],
+            output_size=e - s)
+        keys = tile * a.n_cols + a.indices[s:e].long()
+        uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
+        cnt = torch.bincount(torch.div(uniq, a.n_cols, rounding_mode="floor"),
+                             minlength=t1 - t0)
+        start = torch.cumsum(cnt, 0) - cnt
+        # uint16 values in int16 storage (the kernel reads them unsigned)
+        li = (inv - start[tile]).to(torch.int32)
+        local.append(torch.where(li >= 1 << 15, li - (1 << 16),
+                                 li).to(torch.int16))
+        counts.append(cnt)
+        cols.append((uniq % a.n_cols).to(torch.int32))
+    return torch.cat(local), torch.cat(counts), torch.cat(cols)
+
+
+def tile_csr(a: Csr, window: int = TILE_WINDOW,
+             nnz: int = TILE_NNZ) -> TileCsr | None:
+    """The tiled form of ``a``, built where its tensors lie (torch sorts of
+    (tile, column) keys; nothing but sizes and counts reaches the host).
+    Tiles start at about ``nnz`` nonzeros; a tile whose distinct columns
+    pass ``window`` (or the 16-bit index's ``TILE_MAX_COLS``) is halved by
+    rows until none does. None for an empty operator or a single row past
+    the limit."""
+    if a.n_rows == 0 or a.nnz == 0:
+        return None
+    limit = min(window, TILE_MAX_COLS)
+    tile_rows = _tile_rows(a.indptr, nnz)
+    while True:
+        local, counts, cols = _local_columns(a, tile_rows)
+        bad = (counts > limit).nonzero().squeeze(1)
+        if bad.numel() == 0:
+            break
+        b0, b1 = tile_rows[bad], tile_rows[bad + 1]
+        if bool((b1 - b0 < 2).any()):
+            return None
+        tile_rows = torch.sort(torch.cat([
+            tile_rows, torch.div(b0 + b1, 2, rounding_mode="floor")])).values
+    tile_ptr = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                           device=a.indptr.device)
+    torch.cumsum(counts, 0, out=tile_ptr[1:])
+    return TileCsr(indptr=a.indptr, indices=local,
+                   vals=a.vals, n_cols=a.n_cols, tile_rows=tile_rows,
+                   tile_ptr=tile_ptr, tile_cols=cols,
+                   window=int(counts.max()))
+
+
+def tile_to_csr(t: TileCsr) -> Csr:
+    """The global ``Csr`` of a tiled operator (the same ``indptr`` and
+    ``vals`` tensors, int32 global columns decoded from the tiles)."""
+    if not isinstance(t, TileCsr):
+        return t
+    dev = t.indptr.device
+    tile_nnz = t.indptr[t.tile_rows].diff()
+    tile = torch.repeat_interleave(torch.arange(t.n_tiles, device=dev),
+                                   tile_nnz, output_size=t.nnz)
+    local = t.indices.long() & 0xFFFF
+    cols = t.tile_cols[t.tile_ptr[tile] + local]
+    return Csr(indptr=t.indptr, indices=cols.to(torch.int32), vals=t.vals,
+               n_cols=t.n_cols)
+
+
+def tile_rule(op) -> TileCsr | None:
+    """The rule that picks the form of a level's A or R, on the operator
+    alone: its tiled form where rows average at least ``TILE_MIN_ROW_LEN``
+    nonzeros, the operator holds at least ``TILE_MIN_NNZ``, and its tiles'
+    distinct columns are at most ``TILE_MAX_UNIQUE_SHARE`` of its nonzeros;
+    else None (any other operator, or a ``TileCsr`` already)."""
+    if not isinstance(op, Csr) or op.nnz < TILE_MIN_NNZ \
+            or op.nnz < TILE_MIN_ROW_LEN * op.n_rows:
+        return None
+    t = tile_csr(op)
+    if t is None or t.unique_share > TILE_MAX_UNIQUE_SHARE:
+        return None
+    return t
+
+
+def tiled_form(op):
+    """A level's A or R in the form it runs in: :func:`tile_rule`'s tiled
+    form of a ``Csr`` on a CUDA device, else ``op`` unchanged. On the CPU
+    the form has no kernel: its twin would decode every column on each
+    apply."""
+    if not isinstance(op, Csr) or op.indptr.device.type != "cuda":
+        return op
+    t = tile_rule(op)
+    return op if t is None else t
 
 
 @dataclass(frozen=True)
@@ -274,10 +473,11 @@ def csr_from_scipy(m, dtype=torch.float32, device="cuda") -> Csr:
         n_cols=int(m.shape[1]))
 
 
-def csr_to_scipy(a: Csr):
-    """scipy CSR (f64) of a device ``Csr``."""
+def csr_to_scipy(a: Csr | TileCsr):
+    """scipy CSR (f64) of a device ``Csr`` (or ``TileCsr``, decoded)."""
     import scipy.sparse as sp
 
+    a = tile_to_csr(a)
     return sp.csr_matrix((a.vals.detach().to("cpu", torch.float64).numpy(),
                           a.indices.cpu().numpy(), a.indptr.cpu().numpy()),
                          shape=a.shape)
@@ -465,8 +665,8 @@ def dia_to_csr(a: Dia, device=None) -> Csr:
 def diagonal(a):
     """The main diagonal of a ``Dia`` (its centre plane: a tensor, or a
     numpy array for host planes), a ``ConstDia`` (f32, constant) or a
-    ``Csr`` (a device op: each row's diagonal entries summed, in f32, then
-    cast to the values' dtype)."""
+    ``Csr`` or ``TileCsr`` (a device op: each row's diagonal entries
+    summed, in f32, then cast to the values' dtype)."""
     if isinstance(a, ConstDia):
         c = a.coeffs[a.offsets.index(0)] if 0 in a.offsets else 0.0
         return torch.full((a.n_rows,), c, dtype=torch.float32,
@@ -477,7 +677,8 @@ def diagonal(a):
         if isinstance(a.data, torch.Tensor):
             return a.data.new_zeros(a.n_rows)
         return np.zeros(a.n_rows, a.data.dtype)
-    if isinstance(a, Csr):
+    if isinstance(a, (Csr, TileCsr)):
+        a = tile_to_csr(a)
         n = a.n_rows
         rows = torch.repeat_interleave(
             torch.arange(n, device=a.vals.device), a.indptr.diff(),

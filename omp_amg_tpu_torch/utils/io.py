@@ -5,7 +5,9 @@
 - A hierarchy saved as one ``.npz`` with a JSON ``__meta__`` entry, so
   that a setup can be reused across runs and processes. Every level form
   the port builds round-trips bit for bit: ``Csr`` and ``Dia`` with f32 or
-  bf16 values (bf16 stored as its 16-bit pattern), ``ConstDia`` (taps and
+  bf16 values (bf16 stored as its 16-bit pattern), ``TileCsr`` (written as
+  its global CSR; ``make_level``'s rule gives the tiled form again on
+  load), ``ConstDia`` (taps and
   coefficients only: the port keeps no mask arrays, validity is index
   arithmetic, ``const_masks``), ``GridProlong`` and ``GridRestrict``; with
   ``dinv``, ``lmax``, ``coarse_chol`` and the ``AMGParams``. The Jacobi
@@ -25,7 +27,8 @@ from ..amg.hierarchy import Hierarchy, make_level
 from ..amg.params import AMGParams
 from ..amg.structured import GridProlong, GridRestrict
 from ..sparse.formats import (  # noqa: F401  (csr_to_scipy: re-exported)
-    ConstDia, Csr, Dia, const_to_dia, csr_from_scipy, csr_to_scipy,
+    ConstDia, Csr, Dia, TileCsr, const_to_dia, csr_from_scipy,
+    csr_to_scipy, tile_to_csr,
 )
 from .device import resolve_device
 
@@ -42,8 +45,8 @@ def read_matrix_market(path, device="cuda"):
 
 
 def write_matrix_market(path, a, comment: str = "") -> None:
-    """Write a ``Dia``, ``ConstDia``, ``Csr`` or scipy matrix as a
-    MatrixMarket file."""
+    """Write a ``Dia``, ``ConstDia``, ``Csr``, ``TileCsr`` or scipy matrix
+    as a MatrixMarket file."""
     import scipy.io
     import scipy.sparse as sp
 
@@ -53,7 +56,7 @@ def write_matrix_market(path, a, comment: str = "") -> None:
         a = const_to_dia(a)
     if isinstance(a, Dia):
         m = dia_to_scipy(a)
-    elif isinstance(a, Csr):
+    elif isinstance(a, (Csr, TileCsr)):
         m = csr_to_scipy(a)
     else:
         m = sp.csr_matrix(a)
@@ -106,7 +109,8 @@ def _pack_op(prefix: str, op, out: dict, meta: dict) -> None:
         data = op.data if isinstance(op.data, torch.Tensor) else \
             torch.from_numpy(np.asarray(op.data))
         _put(prefix, "data", data, out, meta)
-    elif isinstance(op, Csr):
+    elif isinstance(op, (Csr, TileCsr)):    # the tiled form as its global CSR
+        op = tile_to_csr(op)
         meta[prefix + ":kind"] = "csr"
         meta[prefix + ":n_cols"] = int(op.n_cols)
         for name in ("indptr", "indices", "vals"):

@@ -4,7 +4,9 @@ x window and on both its vector and scalar paths, ``csr_spmv`` at every
 lane width on rows of 0 to 200 nonzeros, ``const_stencil`` on ragged,
 one-plane, one-line, interior-block and unaligned grids at any z-chunk,
 ``panel_spmm`` on both of its instances, ``remote_halo``'s windows
-exactly on both of its paths), and the GPU solves' iteration counts
+exactly on both of its paths, ``tile_csr`` bitwise the CSR kernel in every
+mode × value type × lane width of its rule, also through a certified 64³
+PMIS solve), and the GPU solves' iteration counts
 (PMIS, PMIS with the probed Galerkin values, structured, structured on a
 4-shard mesh and PMIS on a 4-shard mesh, whose shard windows the CSR kernel
 also reads against its twin; and with the Chebyshev and l1-Jacobi
@@ -16,6 +18,8 @@ skipped elsewhere (the CPU runs only the twins). Run on the card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1142,3 +1146,123 @@ def test_remote_halo_across_two_processes_on_one_card():
             assert res["round_trip"] == [True]
             assert res["windows"] == [True] * 3
             assert res["ipc_launches"] == 3
+
+
+# --- the tiled CSR kernel: bitwise the CSR kernel on the same operator ---
+
+def _banded_csr(rng, n, lo, hi, reach, empty_every=97):
+    """Rows of ``lo``..``hi`` distinct columns within ``reach`` of the row
+    (neighbouring rows share columns, as the coarse PMIS rows do), every
+    ``empty_every``-th row empty: a V = 8 case of the tiled form's rule."""
+    import scipy.sparse as sp
+
+    lens = rng.integers(lo, hi + 1, n)
+    lens[::empty_every] = 0
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.clip(rows + rng.integers(-reach, reach + 1, rows.size), 0,
+                   n - 1)
+    m = sp.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                      shape=(n, n))
+    m.sum_duplicates()
+    return csr_from_scipy(m, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def tile_cases():
+    """A₁ and A₂ of the 48³ PMIS hierarchy (V = 16 and 32) and a banded
+    random operator (V = 8), as CSRs."""
+    _need_cuda()
+    h = amg.amg_setup(amg.poisson3d_7pt(48), PARAMS, device="cuda")
+    cases = {"A1": h.levels[1].a, "A2": h.levels[2].a,
+             "banded": _banded_csr(np.random.default_rng(5), 60_000, 16, 31,
+                                   300)}
+    assert [c.vec for c in cases.values()] == [16, 32, 8]
+    return cases
+
+
+def _tile_pair(c, t, mode, x, v, b, s):
+    from omp_amg_tpu_torch.ops import tile_csr as tile_ops
+
+    before = tile_ops.launches
+    args = {"spmv": (x,), "residual": (x, b), "correct": (x, v),
+            "jacobi": (x, b, s)}[mode]
+    got = getattr(tile_ops, mode)(t, *args)
+    assert tile_ops.launches == before + 1
+    want = getattr(csr_spmv, mode)(c, *args)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("window", [6144, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["spmv", "residual", "correct", "jacobi"])
+@pytest.mark.parametrize("case", ["A1", "A2", "banded"])
+def test_tile_kernel_bitwise_csr_kernel(tile_cases, case, mode, dtype,
+                                        window):
+    """Every mode × value type × lane width of the rule, at the builder's
+    window and at one that cuts many small tiles: the tiled kernel's bits
+    are the CSR kernel's, and near the twin's."""
+    from omp_amg_tpu_torch.ops import tile_csr as tile_ops
+    from omp_amg_tpu_torch.sparse.formats import tile_csr
+
+    c = tile_cases[case]
+    c = Csr(c.indptr, c.indices, c.vals.to(dtype), c.n_cols)
+    t = tile_csr(c, window=window)
+    assert t is not None and t.window <= window and t.vec == c.vec
+    rng = np.random.default_rng(3)
+    x, v, b, s = (_vec(rng, c.n_rows) for _ in range(4))
+    got, want = _tile_pair(c, t, mode, x, v, b, s)
+    assert torch.equal(got, want)
+    _check(got, tile_ops.tile_csr_plain(t, x, mode, v=v, b=b, s=s), 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["spmv", "residual", "correct", "jacobi"])
+def test_tile_kernel_bitwise_on_unaligned_views(tile_cases, mode):
+    """Operands that are views off a 16-byte boundary take the element
+    copies: the same bits."""
+    from omp_amg_tpu_torch.sparse.formats import tile_csr
+
+    c = tile_cases["A1"]
+    t = tile_csr(c)
+    rng = np.random.default_rng(4)
+    n = c.n_rows
+    x, v, b, s = (_vec(rng, n + 1)[1:] for _ in range(4))
+    vals = torch.cat([c.vals[:1], c.vals])[1:]
+    c2 = Csr(c.indptr, c.indices, vals, c.n_cols)
+    t2 = dataclasses.replace(t, vals=vals)
+    got, want = _tile_pair(c2, t2, mode, x, v, b, s)
+    assert torch.equal(got, want)
+
+
+def test_certified_pmis_solve_is_the_csr_paths():
+    """A certified 64³ PMIS solve on its hierarchy (every operator a CSR:
+    the rule's size keeps them there) and on the same hierarchy with every
+    A and R of 8 lanes or more in the tiled form: the same iterations,
+    residual and answer, bit for bit."""
+    _need_cuda()
+    from omp_amg_tpu_torch.ops import tile_csr as tile_ops
+    from omp_amg_tpu_torch.sparse.formats import tile_csr
+
+    def tiled(op):
+        return tile_csr(op) if isinstance(op, Csr) and op.vec >= 8 else op
+
+    a = amg.poisson3d_7pt(64)
+    b = amg.default_rhs(a, seed=0)
+    solver = amg.AMGSolver(a, PARAMS, device="cuda")
+    csr = solver.hierarchy
+    assert csr.tiled == ()
+    x_c = solver.solve(b, tol=1e-8)
+    info_c = solver.last_info
+    solver.hierarchy = dataclasses.replace(csr, levels=tuple(
+        dataclasses.replace(lv, a=tiled(lv.a), r=tiled(lv.r))
+        for lv in csr.levels))
+    assert [(l, name) for l, name, _ in solver.hierarchy.tiled][:2] == \
+        [(1, "a"), (1, "r")]
+    before = tile_ops.launches
+    x_t = solver.solve(b, tol=1e-8)
+    info_t = solver.last_info
+    assert tile_ops.launches > before
+    assert info_t["inner_iters"] == info_c["inner_iters"]
+    assert info_t["outer_iters"] == info_c["outer_iters"]
+    assert info_t["rel_residual"] == info_c["rel_residual"] <= 1e-8
+    assert np.array_equal(np.asarray(x_t), np.asarray(x_c))
