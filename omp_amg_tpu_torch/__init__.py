@@ -48,7 +48,10 @@ residual on the host or, native f64, on the card.
 
 A classical setup recorded in a ``SetupCache`` (``AMGSolver(...,
 refreshable=True)``) refreshes its values for a same-sparsity operator
-(``amg_refresh``, ``AMGSolver.refresh``); ``save_hierarchy`` and
+(``amg_refresh``, ``AMGSolver.refresh``), a structured one recorded in a
+``StructuredCache`` for an operator on the same grid with the same
+offsets (``structured_refresh``: the cached axes and transfers, new
+Galerkin planes, smoother data and coarse factor); ``save_hierarchy`` and
 ``load_hierarchy`` checkpoint a hierarchy, ``read_matrix_market`` and
 ``write_matrix_market`` read and write operators, ``PhaseTimers`` times
 phases, and ``python -m omp_amg_tpu_torch.cli`` is the command-line tool.
@@ -67,7 +70,8 @@ from .amg.hierarchy import (  # noqa: F401
 )
 from .amg.params import AMGParams  # noqa: F401
 from .amg.refresh import (  # noqa: F401
-    PatternChangedError, SetupCache, amg_refresh, cache_nbytes,
+    PatternChangedError, SetupCache, StructuredCache, amg_refresh,
+    cache_nbytes, structured_refresh,
 )
 from .amg.smoothers import chebyshev, estimate_lmax  # noqa: F401
 from .amg.structured import GridProlong, GridRestrict  # noqa: F401

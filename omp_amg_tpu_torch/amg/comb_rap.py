@@ -18,8 +18,9 @@ two engines: the per-axis-factored convolution (the default) or the comb
 probe (the explicit cross-check). The
 reference applies each axis factor as a dense one-hot (nc × nf) matmul,
 because stride-2 reads are slow on a TPU; on a GPU they are plain strided
-loads, so here each factor is at most three weighted stride-2 slices and no
-matmul runs (nothing depends on the TF32 setting).
+loads, so here each factor is at most three weighted stride-2 slices, each
+applied to all diagonals of a level in one launch, and no matmul runs
+(nothing depends on the TF32 setting).
 
 The host comb probe applies its chain one comb at a time (through the
 native single-vector transfers when the library is built) instead of the
@@ -28,6 +29,7 @@ reference's blocked native pass; the responses agree to f64 roundoff.
 
 from __future__ import annotations
 
+import functools
 from itertools import product as iproduct
 from typing import Sequence
 
@@ -451,20 +453,6 @@ class AxisFactor:
             m[self.zero_row, :] = 0.0
         return m
 
-    def apply(self, x: torch.Tensor, axis: int) -> torch.Tensor:
-        """M contracted with ``x`` along ``axis`` (extent nf → nc): each
-        term one strided read of ``x``, summed in the order of ``terms``."""
-        xm = x.movedim(axis, -1)
-        out = xm.new_zeros(xm.shape[:-1] + (self.nc,))
-        for s, w in self.terms:
-            lo = max(0, (1 - s) // 2)                     # 2I + s ≥ 0
-            hi = min(self.nc, (self.nf - 1 - s) // 2 + 1)  # 2I + s < nf
-            if hi > lo:
-                out[..., lo:hi] += w * xm[..., 2 * lo + s:2 * hi - 1 + s:2]
-        if self.zero_row is not None:
-            out[..., self.zero_row] = 0.0
-        return out.movedim(-1, axis)
-
 
 def _axis_factor_maps(nf: int, nc: int, coarsened_ax: bool):
     """The 9 per-axis factors M[dk][dlt] of the Galerkin product.
@@ -504,46 +492,81 @@ def _coarse_deltas(coarse_dims):
     return deltas, order, strides_c
 
 
+@functools.lru_cache(maxsize=256)
+def _axis_weights(nf: int, nc: int, coarsened_ax: bool, dk_col: tuple,
+                  device: torch.device):
+    """One axis of the factored product as weights: ``(shifts, w)`` with
+    ``w[j, k, dlt + 1]`` the weight of the stride-2 slice ``x[2I + s]``
+    (``s = shifts[j]``; on a non-coarsened axis the identity, ``shifts``
+    (0,)) in the factor M[dk_k][dlt] of :func:`_axis_factor_maps`, 0 where
+    M has no such term or is 0, on ``device``. Cached: a copy from pageable
+    host memory waits for the device's queue, so a level of a refresh must
+    not make one."""
+    maps = _axis_factor_maps(nf, nc, coarsened_ax)
+    shifts = (-1, 0, 1) if coarsened_ax else (0,)
+    w = np.zeros((len(shifts), len(dk_col), 3), np.float32)
+    for k, dk in enumerate(dk_col):
+        for dlt in (-1, 0, 1):
+            m = maps[int(dk)][dlt]
+            if isinstance(m, str):
+                w[0, k, dlt + 1] = 1.0
+            elif m is not None:
+                for s, wt in m.terms:
+                    w[shifts.index(s), k, dlt + 1] = wt
+    return shifts, torch.from_numpy(w).to(device)
+
+
 def _device_factored_fn(offsets, dims, coarse_dims, coarsened):
     """(coarse offsets, f): the per-axis-factored Galerkin RAP, the fast
-    device engine. Per fine diagonal k, the axis factors of
-    :func:`_axis_factor_maps` contract its grid field axis by axis (minor
-    axis first: ≤ 3, then ≤ 9, then ≤ 27 partial results), and each result
-    adds into its coarse tap, so every fine diagonal is taken once. Same
-    tap set, stable offset order and masked zeros as the comb engine.
-    Raises ValueError outside the radius-1 contract."""
+    device engine. The axis factors of :func:`_axis_factor_maps` contract
+    all fine diagonals' grid fields at once, axis by axis (minor axis
+    first), into a (diagonal, coarse tap) stack that grows from 1 to 3^d
+    taps: on each axis every weighted stride-2 slice is one multiply-add
+    over the whole stack, and the boundary row of each ±1 tap is zeroed.
+    The diagonals then add into their taps in order. So a level takes a
+    few dozen launches, whatever its number of diagonals, with the sums of
+    one factor at a time in the same order (the weights are 0, ¼, ½ and
+    1, so every product is exact): the same bits. Same tap set, stable
+    offset order and masked zeros as the comb engine. Raises ValueError
+    outside the radius-1 contract."""
     d = len(dims)
     dk_all = axis_deltas(list(offsets), tuple(dims))
     if np.abs(dk_all).max(initial=0) > 1:
         raise ValueError("operator outside the radius-1 structured contract")
-    nc = int(np.prod(coarse_dims))
+    nk = len(offsets)
     deltas, order, strides_c = _coarse_deltas(coarse_dims)
     offs_sorted = [sum(dl * st for dl, st in zip(deltas[int(i)], strides_c))
                    for i in order]
-    maps = [_axis_factor_maps(dims[ax], coarse_dims[ax], coarsened[ax])
-            for ax in range(d)]
+    # a tap's row of the stack: its delta in base 3, axis 0 the major digit
+    rows = [sum((dl + 1) * 3 ** (d - 1 - ax)
+                for ax, dl in enumerate(deltas[int(i)])) for i in order]
+    dk_cols = [tuple(int(v) for v in dk_all[:, ax]) for ax in range(d)]
 
     def f(data: torch.Tensor) -> torch.Tensor:
-        fields = data.reshape((len(offsets),) + tuple(dims))
-        acc = {}
-        for k in range(len(offsets)):
-            partial = {(): fields[k]}
-            for ax in range(d - 1, -1, -1):
-                m_ax = maps[ax][int(dk_all[k, ax])]
-                nxt = {}
-                for key, arr in partial.items():
-                    for dlt in (-1, 0, 1):
-                        m = m_ax[dlt]
-                        if m is None:
-                            continue
-                        nxt[(dlt,) + key] = (arr if isinstance(m, str)
-                                             else m.apply(arr, ax))
-                partial = nxt
-            for delta, arr in partial.items():
-                row = arr.reshape(-1)
-                acc[delta] = row if delta not in acc else acc[delta] + row
-        zero = data.new_zeros(nc)
-        return torch.stack([acc.get(deltas[int(i)], zero) for i in order])
+        part = data.reshape((nk, 1) + tuple(dims))
+        for ax in range(d - 1, -1, -1):
+            nf, nc = dims[ax], coarse_dims[ax]
+            shifts, w = _axis_weights(nf, nc, coarsened[ax], dk_cols[ax],
+                                      data.device)
+            x = part.movedim(2 + ax, -1)
+            if coarsened[ax]:   # x[2I + s], 0 outside the grid
+                x = torch.nn.functional.pad(x, (1, 2 * nc - nf))
+                views = [x[..., s + 1:s + 2 * nc:2] for s in shifts]
+            else:
+                views = [x]
+            out = x.new_zeros((nk, 3) + x.shape[1:-1] + (nc,))
+            for j, v in enumerate(views):
+                out.addcmul_(w[j].view((nk, 3) + (1,) * (out.dim() - 2)),
+                             v.unsqueeze(1))
+            if coarsened[ax]:   # a tap that would cross the boundary
+                out[:, 0, ..., 0] = 0.0
+                out[:, 2, ..., nc - 1] = 0.0
+            part = out.reshape((nk, -1) + out.shape[3:]).movedim(-1, 2 + ax)
+        acc = data.new_zeros(part.shape[1:])
+        for k in range(nk):
+            acc += part[k]
+        acc = acc.reshape(acc.shape[0], -1)
+        return torch.stack([acc[r] for r in rows])
 
     return offs_sorted, f
 
@@ -585,41 +608,84 @@ def _device_comb_fn(offsets, dims, coarse_dims, coarsened):
     return list(coarse_offsets(coarse_dims)), f
 
 
-def comb_rap_device(offsets, data: torch.Tensor, dims, coarse_dims,
-                    coarsened, engine: str = "auto"):
+def galerkin_planes_device(offsets, data: torch.Tensor, dims, coarse_dims,
+                           coarsened, engine: str = "auto"):
     """(offsets_c, data_c) of A_c = R A P for f32 planes ``data`` on their
-    device: ``engine`` "factored" (also "auto") or "comb" (the explicit
+    device, every radius-1 coarse tap that fits the grid, all-zero taps
+    included: ``engine`` "factored" (also "auto") or "comb" (the explicit
     cross-check). Outside the radius-1 contract the factored engine raises
     ValueError at once; the reference's "auto" falls back to the comb
-    engine there, whose period-3 combs alias the wider couplings, so its
-    probe raises the same ValueError after 3^d chain applications.
-    All-zero taps are dropped (one O(ndiag) read), then a random probe
-    (x from ``np.random.default_rng(0)``) checks ‖A_c x − R A P x‖ ≤
-    2e-4·‖R A P x‖ (max norms) and raises ValueError otherwise."""
+    engine there, whose period-3 combs alias the wider couplings, so the
+    probe of :func:`comb_rap_device` raises the same ValueError after 3^d
+    chain applications. No host read."""
+    build = {"auto": _device_factored_fn, "factored": _device_factored_fn,
+             "comb": _device_comb_fn}[engine]
+    offs_c, fn = build(tuple(offsets), tuple(dims), tuple(coarse_dims),
+                       tuple(bool(c) for c in coarsened))
+    return offs_c, fn(data)
+
+
+def galerkin_offsets(offsets, dims, coarse_dims, coarsened) -> list:
+    """The coarse offsets of :func:`galerkin_planes_device`'s planes, in
+    their order, with no product computed."""
+    return _device_factored_fn(tuple(offsets), tuple(dims),
+                               tuple(coarse_dims),
+                               tuple(bool(c) for c in coarsened))[0]
+
+
+def select_taps(offs_c, data_c: torch.Tensor, keep):
+    """The taps ``keep`` (indices into ``offs_c``, ascending) of the planes
+    ``data_c``: the planes themselves where every tap is kept."""
+    if len(keep) == len(offs_c):
+        return offs_c, data_c
+    return ([offs_c[k] for k in keep],
+            torch.stack([data_c[k] for k in keep]) if keep else data_c[:0])
+
+
+def probe_device(offsets, data: torch.Tensor, dims, coarse_dims, coarsened,
+                 offs_c, data_c: torch.Tensor) -> torch.Tensor:
+    """``[max|A_c x − R A P x|, max|R A P x|]`` (f32, on the device) for the
+    pseudo-random probe x = ``hash01`` of the coarse row index − ½, made
+    on the device. No host read."""
     from ..ops.grid_transfer import prolong, restrict
+    from ..ops.spmv import spmv_dia
+    from ..sparse.formats import Dia
+    from .pmis import hash01
     from .structured import GridProlong, GridRestrict
 
     dims, coarse_dims = tuple(dims), tuple(coarse_dims)
     coarsened = tuple(bool(c) for c in coarsened)
-    build = {"auto": _device_factored_fn, "factored": _device_factored_fn,
-             "comb": _device_comb_fn}[engine]
-    offs_c, fn = build(tuple(offsets), dims, coarse_dims, coarsened)
-    data_c = fn(data)
-    keep = [k for k, m in enumerate(data_c.abs().amax(dim=1).tolist())
-            if m > 0]
-    offs_c = [offs_c[k] for k in keep]
-    data_c = data_c[keep]
-
-    rng = np.random.default_rng(0)
     nc = int(np.prod(coarse_dims))
-    x = torch.from_numpy(rng.standard_normal(nc)).to(data.device, data.dtype)
-    y1 = dia_apply(offs_c, data_c, x)
+    x = (hash01(torch.arange(nc, device=data.device)) - 0.5).to(data.dtype)
+    y1 = (spmv_dia(Dia(data=data_c, offsets=tuple(offs_c)), x) if offs_c
+          else torch.zeros_like(x))
     y2 = restrict(
         GridRestrict(dims, coarse_dims, coarsened),
-        dia_apply(offsets, data, prolong(
-            GridProlong(dims, coarse_dims, coarsened), x)))
-    err = float((y1 - y2).abs().max())
-    scale = float(y2.abs().max()) + 1e-30
-    if err > 2e-4 * scale:
+        spmv_dia(Dia(data=data, offsets=tuple(int(o) for o in offsets)),
+                 prolong(GridProlong(dims, coarse_dims, coarsened), x)))
+    return torch.stack([(y1 - y2).abs().max(), y2.abs().max()])
+
+
+def probe_passes(err: float, scale: float) -> bool:
+    """Whether the probe's ``[err, scale]`` (:func:`probe_device`) passes:
+    ‖A_c x − R A P x‖ ≤ 2e-4·‖R A P x‖."""
+    return err <= 2e-4 * (scale + 1e-30)
+
+
+def comb_rap_device(offsets, data: torch.Tensor, dims, coarse_dims,
+                    coarsened, engine: str = "auto"):
+    """(offsets_c, data_c) of A_c = R A P for f32 planes ``data`` on their
+    device (:func:`galerkin_planes_device`, ``engine`` as there).
+    All-zero taps are dropped (one O(ndiag) read), then a pseudo-random
+    probe (:func:`probe_device`) checks ‖A_c x − R A P x‖ ≤
+    2e-4·‖R A P x‖ (max norms) and raises ValueError otherwise."""
+    offs_c, data_c = galerkin_planes_device(offsets, data, dims, coarse_dims,
+                                            coarsened, engine)
+    keep = [k for k, m in enumerate(data_c.abs().amax(dim=1).tolist())
+            if m > 0]
+    offs_c, data_c = select_taps(offs_c, data_c, keep)
+    err, scale = probe_device(offsets, data, dims, coarse_dims, coarsened,
+                              offs_c, data_c).tolist()
+    if not probe_passes(err, scale):
         raise ValueError(f"comb_rap_device radius assumption violated: {err}")
     return offs_c, data_c

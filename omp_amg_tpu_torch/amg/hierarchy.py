@@ -57,6 +57,7 @@ with the reference's labels, each phase a ``setup.<label>`` span.
 from __future__ import annotations
 
 import collections
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Tuple
 
@@ -79,6 +80,8 @@ from .structured import (
 )
 
 BF16_MIN_ROWS = 1 << 22   # levels this large store coarse A, P, R in bf16
+MAX_DENSE_ROWS = 1 << 12  # a structured coarsest level above coarse_size
+                          # densifies up to this many rows (128 MiB in f64)
 
 # Galerkin products of every setup and refresh of the process, by the engine
 # that gave their values (``Hierarchy.rap_engines`` holds one hierarchy's)
@@ -326,6 +329,15 @@ class HostSetup:
     p: list
 
 
+def is_structured(a, params: AMGParams, grid) -> bool:
+    """Whether :func:`amg_setup` takes the structured path:
+    ``coarsening="structured"``, or ``"auto"`` with a ``grid`` and a banded
+    operator (a ``Dia``), as in the reference."""
+    return (params.coarsening == "structured"
+            or (params.coarsening == "auto" and grid is not None
+                and isinstance(a, Dia)))
+
+
 def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
               keep_host: bool = False, grid=None, cache=None,
               flavor: str = "host"):
@@ -351,10 +363,13 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     PMIS setup's symbolic decisions per level (strength mask, C/F split, P
     pattern, the A_c, A·P and Pᵀ(A·P) patterns, the Pᵀ value permutation,
     the operator kinds), so that :func:`~.refresh.amg_refresh` can rebuild
-    the values of a same-sparsity operator. Structured and device-flavor
-    setups refuse it (ValueError), as the reference's do. With
-    ``rap="probe"`` the cache records the host product's pattern, and a
-    refresh computes A_c's values on the host, as the reference's does.
+    the values of a same-sparsity operator. With ``rap="probe"`` the cache
+    records the host product's pattern, and a refresh computes A_c's
+    values on the host, as the reference's does. A structured setup of
+    either flavor records a :class:`~.refresh.StructuredCache` instead (its
+    grids, axes and transfers, for
+    :func:`~.refresh.structured_refresh`); the device-flavor PMIS setup
+    refuses a cache (ValueError), as the reference's does.
 
     ``OMP_AMG_SETUP_TIMERS=1`` traces the setup's phases
     (:func:`~.utils.trace.last_setup_trace`).
@@ -372,14 +387,18 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     if flavor not in ("host", "device"):
         raise ValueError(f"flavor must be 'host' or 'device', got "
                          f"{flavor!r}")
-    structured = (params.coarsening == "structured"
-                  or (params.coarsening == "auto" and grid is not None
-                      and isinstance(a, Dia)))
-    if cache is not None and (structured or flavor != "host"):
-        raise ValueError(
-            "the setup cache records the host-flavor classical (PMIS) setup "
-            "only; structured hierarchies refresh by re-running their cheap "
-            "setup, and the device flavor keeps no host record to refresh")
+    structured = is_structured(a, params, grid)
+    if cache is not None:
+        from .refresh import SetupCache, StructuredCache
+
+        if not isinstance(cache, StructuredCache if structured
+                          else SetupCache) or not (structured
+                                                   or flavor == "host"):
+            raise ValueError(
+                "a structured setup records a StructuredCache (either "
+                "flavor), the host-flavor classical (PMIS) setup a "
+                "SetupCache; the device-flavor PMIS setup keeps no record "
+                "to refresh")
     if structured:
         n = a.n_rows if isinstance(a, Dia) else a.shape[0]
         if grid is None or int(np.prod(grid)) != n:
@@ -388,7 +407,8 @@ def amg_setup(a, params: AMGParams = AMGParams(), *, device="cuda",
     tune_malloc()   # setup temporaries recycle heap pages (see memtune)
     if structured:
         return _amg_setup_structured(a, tuple(int(g) for g in grid), params,
-                                     device, keep_host, _STRUCTURED[flavor])
+                                     device, keep_host, _STRUCTURED[flavor],
+                                     cache=cache)
     if flavor == "device":
         return _amg_setup_pmis_device(a, params, device, keep_host)
 
@@ -660,72 +680,148 @@ def _estimate_lmax_apply(apply_fn, dinv: np.ndarray, n: int,
 
 
 def _amg_setup_structured(a, dims, params: AMGParams, device,
-                          keep_host: bool, steps: _StructuredSteps):
+                          keep_host: bool, steps: _StructuredSteps,
+                          cache=None, pinned=None):
     """Structured setup: semicoarsen the strong axes, grid transfers, the
     Galerkin planes, dinv from the centre plane (or the l1 sums) and λmax,
     and the form by :func:`_structured_form`, level by level. ``steps`` is
     the flavor (:data:`_STRUCTURED`): where the planes live and what
-    computes the axes, the Galerkin planes and λmax."""
+    computes the axes, the Galerkin planes and λmax.
+
+    ``cache`` (a :class:`~.refresh.StructuredCache`) records what a refresh
+    reuses: the fine dims and offsets, and per level its axes, coarse dims
+    and transfers. ``pinned`` (a recorded cache) is the
+    refresh's mode (:func:`~.refresh.structured_refresh`): the same loop
+    over the recorded levels, with their axes and transfers, recomputing
+    only what depends on the values, and the coarse factor marked as a
+    phase of its own; a fine operator of other dims or offsets raises
+    :class:`~.refresh.PatternChangedError` first. Both record, in the
+    cache, each level's offsets and those of its Galerkin product
+    (``planes``) and the hierarchy (``hier``).
+
+    The coarsest level is densified (:func:`_structured_coarse`)."""
     offsets, data = steps.planes(a, device)
+    n = int(np.prod(dims))
+    if pinned is not None:
+        pinned.check(a, offsets, n)
+    if cache is not None:
+        cache.start(dims, offsets, params, steps)
     host = HostSetup(ops=[fine_host_operator(a) if keep_host else None],
                      states=[], p=[])
     levels = []
+    trail = []      # per level: its offsets and its Galerkin product's
     trace = SetupTrace()
-    n = int(np.prod(dims))
-    while n > params.coarse_size and len(levels) < params.max_levels - 1:
+    while (len(levels) < len(pinned.levels) if pinned is not None else
+           n > params.coarse_size and len(levels) < params.max_levels - 1):
         k = len(levels)
-        with trace.phase(f"L{k} n={n} strength/axes"):
-            axes = steps.axes(offsets, data, dims, params.theta)
-        if not any(axes):
-            break
-        coarse_dims = tuple((d + 1) // 2 if c else d
-                            for d, c in zip(dims, axes))
-        p = GridProlong(fine_shape=dims, coarse_shape=coarse_dims,
-                        coarsened=axes)
-        r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
-                         coarsened=axes)
+        if pinned is None:
+            with trace.phase(f"L{k} n={n} strength/axes"):
+                axes = steps.axes(offsets, data, dims, params.theta)
+            if not any(axes):
+                break
+            coarse_dims = tuple((d + 1) // 2 if c else d
+                                for d, c in zip(dims, axes))
+            p = GridProlong(fine_shape=dims, coarse_shape=coarse_dims,
+                            coarsened=axes)
+            r = GridRestrict(fine_shape=dims, coarse_shape=coarse_dims,
+                             coarsened=axes)
+        else:
+            lv = pinned.levels[k]
+            axes, coarse_dims, p, r = lv.axes, lv.coarse_dims, lv.p, lv.r
+        if cache is not None:
+            cache.record_level(axes, coarse_dims, p, r)
         with trace.phase(f"L{k} RAP") as ph:
             offs_c, data_c = steps.rap(ph, offsets, data, dims, coarse_dims,
                                        axes, p)
+        trail.append((tuple(offsets), tuple(offs_c)))
         with trace.phase(f"L{k} lmax"):
-            # out-of-range taps are stored as exact zeros: the row l1 norm
-            # is a plane-wise |·| sum
-            dinv = 1.0 / (abs(data).sum(0) if params.smoother == "l1jacobi"
-                          else data[offsets.index(0)])
+            dinv = _level_dinv(offsets, data, params)
             cur, lmax = steps.lmax(offsets, data, dims, dinv)
-        with trace.phase(f"L{k} operator form") as ph:
-            a_lvl = _structured_form(cur, params, device, k)
-            ph.label += f" ({type(a_lvl).__name__})"
-        levels.append(make_level(a_lvl, dinv, lmax, p, r, params, device))
+        levels.append(_structured_level(trace, k, cur, dinv, lmax, p, r,
+                                        params, device))
         offsets, data, dims = offs_c, data_c, coarse_dims
         n = int(np.prod(dims))
         if keep_host:
             host.ops.append(dia_to_scipy(Dia(data=data,
                                              offsets=tuple(offsets))))
 
-    hier = _finish(levels, _dense_from_planes(offsets, data, n), params,
-                   device, (steps.engine,) * len(levels))
+    hier = _structured_coarse(trace, levels, offsets, data, dims, params,
+                              device, steps.engine, pinned is not None)
+    for record in (cache, pinned):
+        if record is not None:
+            record.planes, record.hier = trail, hier
     return (hier, host) if keep_host else hier
 
 
-def _structured_form(a: Dia, params: AMGParams, device, level: int):
+def _level_dinv(offsets, data, params: AMGParams):
+    """A structured level's dinv from its planes: 1 / the centre plane, or
+    1 / the row l1 norm with ``smoother="l1jacobi"`` (out-of-range taps are
+    stored as exact zeros, so that norm is a plane-wise |·| sum)."""
+    return 1.0 / (abs(data).sum(0) if params.smoother == "l1jacobi"
+                  else data[list(offsets).index(0)])
+
+
+def _structured_level(trace, k: int, cur, dinv, lmax, p, r,
+                      params: AMGParams, device, checked=None) -> Level:
+    """Level ``k`` of a structured setup from its f32 operator ``cur``,
+    ``dinv`` and λmax, with its form (:func:`_structured_form`, ``checked``
+    as there) marked as the phase ``L<k> operator form (<form>)``."""
+    with trace.phase(f"L{k} operator form") as ph:
+        a_lvl = _structured_form(cur, params, device, k, checked)
+        ph.label += f" ({type(a_lvl).__name__})"
+    return make_level(a_lvl, dinv, lmax, p, r, params, device)
+
+
+def _structured_coarse(trace, levels, offsets, data, dims, params: AMGParams,
+                       device, engine: str, refresh: bool) -> Hierarchy:
+    """The structured hierarchy over ``levels``, its coarsest operator the
+    planes ``data`` (``offsets``) on the grid ``dims``, densified. Where
+    the loop ended above ``coarse_size`` (its strong axes down to 2
+    points, or ``max_levels`` reached) that level is kept, as the
+    reference keeps it, up to ``MAX_DENSE_ROWS`` rows; above both it
+    raises ValueError instead of allocating. A refresh marks the coarse
+    factor as a phase; the reference's setup marks none."""
+    n = int(np.prod(dims))
+    if n > max(params.coarse_size, MAX_DENSE_ROWS):
+        raise ValueError(
+            f"the structured setup ends at {n} rows (grid {dims}), above "
+            f"coarse_size={params.coarse_size} and {MAX_DENSE_ROWS}: no axis "
+            f"is left to coarsen or max_levels={params.max_levels} is "
+            f"reached, and the dense coarse solve would take {8 * n * n} "
+            "bytes")
+    with (trace.phase("coarse factor") if refresh
+          else contextlib.nullcontext()):
+        return _finish(levels, _dense_from_planes(offsets, data, n), params,
+                       device, (engine,) * len(levels))
+
+
+def _structured_form(a: Dia, params: AMGParams, device, level: int,
+                     checked=None):
     """The device form of a structured level's operator ``a`` (f32 planes,
     on the host or the device): a ``ConstDia`` where the reference's rule
     finds a masked-constant stencil (unless ``const_stencil="off"``), else
-    a ``Dia`` (bf16 when lossless). Raises ValueError where the kernel's
-    tap or diagonal limit is exceeded."""
+    a ``Dia`` (bf16 when lossless). ``checked``: ``(const, lossless)``,
+    the two checks already made on these planes (``const`` as
+    :func:`~.sparse.formats.to_const_dia` takes it, or None where the
+    shape rules it out). Raises :class:`~.refresh.FormLimitError` (a
+    ValueError) where the kernel's tap or diagonal limit is exceeded."""
     from ..ops.const_stencil import MAX_TAPS
     from ..ops.dia_spmv import MAX_DIAG
+    from .refresh import FormLimitError
 
-    a_lvl = (to_const_dia(a, device) if params.const_stencil != "off"
-             else None)
+    const, lossless = checked if checked is not None else (None, None)
+    a_lvl = (to_const_dia(a, device, const)
+             if params.const_stencil != "off"
+             and (checked is None or const is not None) else None)
     terms, limit, kernel = ((len(a_lvl.operand[1]), MAX_TAPS, "stencil")
                             if a_lvl is not None else
                             (len(a.offsets), MAX_DIAG, "DIA"))
     if terms > limit:
-        raise ValueError(f"structured level {level} has {terms} diagonals, "
-                         f"more than the {kernel} kernel's {limit}")
-    return a_lvl if a_lvl is not None else dia_to_device(a, device)
+        raise FormLimitError(f"structured level {level} has {terms} "
+                             f"diagonals, more than the {kernel} kernel's "
+                             f"{limit}")
+    return (a_lvl if a_lvl is not None else
+            dia_to_device(a, device, lossless))
 
 
 def _dense_from_planes(offsets, data, n: int) -> np.ndarray:

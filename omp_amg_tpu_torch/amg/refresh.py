@@ -48,6 +48,13 @@ the setup rounds it. R's values are P's, gathered on the device through
 and ``dinv_dev`` come from ``make_level``. The cache keeps the newest
 hierarchy, so a previous one's values are freed once its holder drops it.
 
+A structured setup (``amg_setup(..., grid=, cache=StructuredCache())``,
+either flavor) records its grids instead: the fine dims and offsets, and
+per level the coarsened axes, the coarse dims and the grid transfers.
+:func:`structured_refresh` runs the setup's own level loop over them
+(``_amg_setup_structured``'s pinned mode), so a refreshed hierarchy is the
+fresh setup of the new operator with the cached axes, bit for bit. The reference has no structured refresh.
+
 Left out of the reference, because they exist only for its TPU relay and
 the TPU's 16 GB of HBM: the routed-ELL refill (``_scatter_all_fn``,
 ``_refill_routed_all``, the routed ``_sort_map``/``_cast_stream``), the
@@ -66,7 +73,7 @@ CSR pattern are checked against the setup's on the cold path too.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +89,11 @@ class PatternChangedError(RuntimeError):
     """The new values changed a symbolic decision (strength, interpolation
     truncation, a Galerkin or operator pattern): the cache cannot be
     applied."""
+
+
+class FormLimitError(PatternChangedError, ValueError):
+    """A structured level's planes need more taps than its kernel takes: a
+    ValueError to a fresh setup, a pattern change to a refresh."""
 
 
 def cache_nbytes(cache) -> int:
@@ -184,6 +196,288 @@ class SetupCache:
     def finish(self, hier, params) -> None:
         self.hier = hier
         self.params = params
+
+
+class StructuredLevel(NamedTuple):
+    """One level of a structured setup, as a refresh reuses it."""
+    axes: Tuple[bool, ...]          # the axes coarsened from the level
+    coarse_dims: Tuple[int, ...]    # the next level's grid
+    p: object                       # its GridProlong
+    r: object                       # its GridRestrict
+
+
+class StructuredCache:
+    """Record of a structured setup (``amg_setup(..., grid=, cache=)``, either
+    flavor), for :func:`structured_refresh`."""
+
+    def __init__(self):
+        self.dims = None        # the fine grid
+        self.offsets = None     # the fine operator's plane offsets
+        self.params: Optional[AMGParams] = None
+        self.steps = None       # the flavor's steps (``_StructuredSteps``)
+        self.levels: List[StructuredLevel] = []
+        self.planes = []        # per level of the newest hierarchy: its
+                                # offsets, and its Galerkin product's
+        self.hier = None        # the newest hierarchy
+        self.graphs = None      # the refresh's CUDA graphs (RefreshGraphs)
+        self.graph_refreshes = 0    # refreshes the graphs gave
+
+    def start(self, dims, offsets, params, steps) -> None:
+        self.dims = tuple(int(d) for d in dims)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.params, self.steps = params, steps
+        self.levels, self.planes = [], []
+        self.hier = self.graphs = None
+
+    def record_level(self, axes, coarse_dims, p, r) -> None:
+        self.levels.append(StructuredLevel(tuple(axes), tuple(coarse_dims),
+                                           p, r))
+
+    def check(self, a, offsets, n: int) -> None:
+        """Raise :class:`PatternChangedError` unless the operator ``a`` (its
+        plane ``offsets``, ``n`` rows on the cached grid) has the recorded
+        fine grid and offsets."""
+        dims = getattr(a, "dims", None)
+        rows = a.n_rows if isinstance(a, Dia) else a.shape[0]
+        if rows != n or (dims is not None
+                         and tuple(int(d) for d in dims) != self.dims):
+            raise PatternChangedError(f"L0: grid changed ({rows} rows, dims "
+                                      f"{dims}; cached {self.dims})")
+        if tuple(int(o) for o in offsets) != self.offsets:
+            raise PatternChangedError("L0: DIA offsets changed")
+
+
+def structured_refresh(a_new, cache: StructuredCache):
+    """The structured hierarchy of ``a_new``, an operator on the cached grid
+    with the cached fine offsets, with the cached grids, axes and
+    transfers kept.
+
+    Runs the setup's own level loop (``_amg_setup_structured``) pinned to
+    the cached levels: per level the Galerkin planes, dinv (the centre
+    plane, or the l1 sums), λmax, the level's form (``ConstDia``, or
+    ``Dia`` bf16 if lossless) and, last, the coarse factor, with the
+    setup's own step functions and labels (``OMP_AMG_SETUP_TIMERS=1``). So
+    the result is bitwise a fresh setup of ``a_new`` run with the cached
+    axes. Returns a new ``Hierarchy`` on the cached one's device; the
+    cached one's tensors are not written.
+
+    On a CUDA device (the device flavor) the loop's device work is then
+    held in CUDA graphs (:class:`RefreshGraphs`), and the next refreshes
+    replay them: the same kernels on the same values, so the same bits,
+    with a few launches a level where the loop takes hundreds. A replay
+    whose product drops other taps, or whose probe fails, is set aside
+    for the loop.
+
+    Why the axes are kept and not chosen anew: on a structured operator the
+    axes decide only how fast the grid shrinks. Galerkin operators of an
+    SPD operator on any fixed grid hierarchy are SPD, so the V-cycle stays
+    a convergent SPD preconditioner (and the f64 certificate judges every
+    answer). A value change that moves the stiffness scores (a diagonal
+    shift A + s·I) therefore leaves the cached grids valid, unlike a
+    cached PMIS C/F split, which a changed strength mask invalidates. A
+    coarse level may gain or lose planes (an exact zero coming back): its
+    form is rebuilt. Raises :class:`PatternChangedError` where the fine
+    dims or offsets differ, or where a level's new planes need more taps
+    than its kernel takes (``MAX_TAPS``, ``MAX_DIAG``:
+    :class:`FormLimitError`); any other error of the loop is raised as it
+    is."""
+    from .hierarchy import _amg_setup_structured
+
+    if cache.hier is None:
+        raise ValueError("cache was not finished by amg_setup")
+    if cache.graphs is not None:
+        hier = cache.graphs.refresh(a_new, cache)
+        if hier is not None:
+            cache.graph_refreshes += 1
+            cache.hier = hier
+            return hier
+    device = cache.hier.device
+    hier = _amg_setup_structured(a_new, cache.dims, cache.params, device,
+                                 False, cache.steps, pinned=cache)
+    if (cache.steps.engine == "comb" and cache.levels
+            and torch.device(device).type == "cuda"):
+        cache.graphs = RefreshGraphs(a_new, cache)
+    return hier
+
+
+class _GraphLevel(NamedTuple):
+    """One level of :class:`RefreshGraphs`: its two graphs, what they were
+    captured for, and the static tensors they write."""
+    rap: object             # the Galerkin planes and the probe
+    lmax: object            # dinv, λmax and the form's checks
+    offsets: tuple          # the level's plane offsets
+    dims: tuple             # its grid
+    keep: tuple             # the product's taps kept (the rest all zero)
+    out_offsets: tuple      # the kept taps' offsets
+    out: torch.Tensor       # the kept planes: the next level's operator
+    amax: torch.Tensor      # max |·| of every tap of the product
+    probe: torch.Tensor     # [max|A_c x − R A P x|, max|R A P x|]
+    dinv: torch.Tensor
+    reads: torch.Tensor     # λmax, bf16-lossless, then [const, coeffs...]
+
+
+class _Eager:
+    """A captured graph's stand-in on CPU tensors: ``replay`` runs ``fn``
+    again and copies its tensors into those of the first run (``out``)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.out = fn()
+
+    def replay(self) -> None:
+        for d, v in zip(self.out, self.fn()):
+            if isinstance(d, torch.Tensor):
+                d.copy_(v)
+
+
+class RefreshGraphs:
+    """The device work of a structured refresh, level by level, as two CUDA
+    graphs a level over static planes: ``L<k> RAP`` (the Galerkin planes
+    by :func:`.comb_rap.galerkin_planes_device`, every tap's max |·|, the
+    taps the newest hierarchy kept, the probe of
+    :func:`.comb_rap.probe_device`) and ``L<k> lmax`` (dinv, λmax by
+    :func:`.smoothers.lmax_tensor`, and the two checks that decide the
+    level's form: :func:`~.sparse.formats.const_check` where the shape
+    allows a constant stencil, :func:`~.sparse.formats.bf16_check`), each
+    level's reading the planes the level above wrote. Captured after a
+    pinned loop (``planes`` of the cache: the taps its products kept),
+    into one private pool (the graphs replay in the order of their
+    capture, one at a time). On CPU tensors each graph is an eager
+    stand-in (:class:`_Eager`), which the tests drive.
+
+    :meth:`refresh` copies the fine planes in, replays every graph, reads
+    every max, probe, λmax and check in one copy, and builds the levels
+    (their forms, the coarse factor) from clones of the static planes, as
+    the loop builds them from its own. The same kernels run on the same
+    values: the hierarchy is bitwise the loop's."""
+
+    def __init__(self, a, cache: StructuredCache):
+        from ..solvers import graph as G
+        from .comb_rap import galerkin_offsets
+
+        device = torch.device(cache.hier.device)
+        _, data = cache.steps.planes(a, device)
+        self.params = cache.params
+        self.inp = data.clone()
+        specs, x, dims = [], self.inp, cache.dims
+        for lv, (offs, out) in zip(cache.levels, cache.planes):
+            full = galerkin_offsets(offs, dims, lv.coarse_dims, lv.axes)
+            specs.append((offs, dims, lv,
+                          tuple(i for i, o in enumerate(full) if o in out)))
+            dims = lv.coarse_dims
+        self.levels = []
+        if device.type != "cuda":
+            x = self.inp
+            for spec in specs:
+                rap = _Eager(lambda spec=spec, x=x: self._rap(spec, x))
+                lmax = _Eager(lambda spec=spec, x=x: self._lmax(spec, x))
+                x = self._level(spec, rap, lmax, rap.out, lmax.out)
+            return
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        c0 = G.counts()
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        # a warm-up on the capture stream: the cuBLAS workspace and every
+        # host-side cache (the axis weights, the tap boxes)
+        with torch.cuda.stream(self.stream):
+            x = self.inp
+            for spec in specs:
+                self._lmax(spec, x)
+                x = self._rap(spec, x)[1]
+        torch.cuda.synchronize(device)
+        x, got = self.inp, {}
+        with G.no_gc():
+            for spec in specs:
+                rap, lmax = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+                G.capture_into(rap, self.pool, self.stream,
+                               lambda: got.update(rap=self._rap(spec, x)))
+                G.capture_into(lmax, self.pool, self.stream,
+                               lambda: got.update(lmax=self._lmax(spec, x)))
+                x = self._level(spec, rap, lmax, got["rap"], got["lmax"])
+        G.restore(c0)
+
+    def _level(self, spec, rap, lmax, rap_out, lmax_out) -> torch.Tensor:
+        offs, dims, _, keep = spec
+        out_offsets, out, amax, probe = rap_out
+        self.levels.append(_GraphLevel(rap, lmax, tuple(offs), tuple(dims),
+                                       keep, tuple(out_offsets), out, amax,
+                                       probe, *lmax_out))
+        return out
+
+    def _rap(self, spec, x):
+        from .comb_rap import galerkin_planes_device, probe_device, select_taps
+
+        offs, dims, lv, keep = spec
+        full_offs, full = galerkin_planes_device(offs, x, dims,
+                                                 lv.coarse_dims, lv.axes)
+        amax = full.abs().amax(dim=1)
+        out_offsets, out = select_taps(full_offs, full, list(keep))
+        return (out_offsets, out, amax,
+                probe_device(offs, x, dims, lv.coarse_dims, lv.axes,
+                             out_offsets, out))
+
+    def _lmax(self, spec, x):
+        from ..sparse.formats import bf16_check, const_check, const_shape
+        from .hierarchy import _level_dinv
+        from .smoothers import lmax_tensor
+
+        offs, dims, _, _ = spec
+        cur = Dia(data=x, offsets=tuple(offs), dims=dims)
+        dinv = _level_dinv(offs, x, self.params)
+        reads = [lmax_tensor(cur, dinv).reshape(1),
+                 bf16_check(x).reshape(1).float()]
+        shape = (const_shape(cur) if self.params.const_stencil != "off"
+                 else None)
+        if shape is not None:
+            col, ok = const_check(x, shape)
+            reads += [ok.reshape(1).float(), col]
+        return dinv, torch.cat(reads)
+
+    def refresh(self, a, cache: StructuredCache):
+        """The refreshed hierarchy of ``a``, or None where a product kept
+        other taps or a probe failed (the loop then decides). Raises
+        :class:`PatternChangedError` as the loop does."""
+        from .comb_rap import probe_passes
+        from .hierarchy import _structured_coarse, _structured_level
+
+        device = cache.hier.device
+        offsets, data = cache.steps.planes(a, device)
+        cache.check(a, offsets, int(np.prod(cache.dims)))
+        trace = SetupTrace()
+        self.inp.copy_(data)
+        for k, lv in enumerate(self.levels):
+            with trace.phase(f"L{k} RAP") as ph:
+                lv.rap.replay()
+                ph.sync = lv.out
+            with trace.phase(f"L{k} lmax") as ph:
+                lv.lmax.replay()
+                ph.sync = lv.reads
+        vals = torch.cat([t.reshape(-1) for lv in self.levels
+                          for t in (lv.amax, lv.probe, lv.reads)]).tolist()
+        found, i = [], 0
+        for lv in self.levels:
+            m, r = len(lv.amax), len(lv.reads)
+            amax, (err, scale) = vals[i:i + m], vals[i + m:i + m + 2]
+            reads = vals[i + m + 2:i + m + 2 + r]
+            i += m + 2 + r
+            if (tuple(j for j, v in enumerate(amax) if v > 0) != lv.keep
+                    or not probe_passes(err, scale)):
+                return None
+            const = ((tuple(reads[3:]), reads[2] != 0) if r > 2 else None)
+            found.append((reads[0], (const, reads[1] != 0)))
+        levels = []
+        for k, (lv, clv) in enumerate(zip(self.levels, cache.levels)):
+            # the static planes are written by the next replay: clones
+            planes = data if k == 0 else self.levels[k - 1].out.clone()
+            cur = Dia(data=planes, offsets=lv.offsets, dims=lv.dims)
+            lmax, checked = found[k]
+            levels.append(_structured_level(trace, k, cur, lv.dinv.clone(),
+                                            lmax, clv.p, clv.r, cache.params,
+                                            device, checked))
+        last = self.levels[-1]
+        return _structured_coarse(trace, levels, last.out_offsets, last.out,
+                                  cache.levels[-1].coarse_dims, cache.params,
+                                  device, cache.steps.engine, True)
 
 
 def _build_level_num(c, a_pat, host_dia0):

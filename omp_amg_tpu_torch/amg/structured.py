@@ -173,7 +173,13 @@ def strong_axes_from_values(offsets, values, dims: Tuple[int, ...],
                             theta: float) -> Tuple[bool, ...]:
     """Axis selection from one representative value per diagonal: axis ax
     is coarsened iff c_ax ≥ θ·max c and its extent is > 2, with
-    c_ax = max(0, Σ_taps −a_tap·δ_ax²)."""
+    c_ax = max(0, Σ_taps −a_tap·δ_ax²).
+
+    Where no axis scores positive stiffness (max c = 0: a mass-dominated
+    level, as the Galerkin levels of A + s·I become under a large shift)
+    every axis of extent > 2 is coarsened: no direction is stiffer than
+    another. The reference stops coarsening there and densifies whatever
+    is left (at 256³ under s = 1, 64³ rows)."""
     values = np.asarray(values, np.float64)
     deltas = axis_deltas(offsets, dims)
     c = np.zeros(len(dims))
@@ -181,7 +187,7 @@ def strong_axes_from_values(offsets, values, dims: Tuple[int, ...],
         c[ax] = max(0.0, float(np.sum(-values * (deltas[:, ax] ** 2))))
     cmax = c.max()
     if cmax <= 0:
-        return tuple(False for _ in dims)
+        return tuple(bool(d > 2) for d in dims)
     return tuple(bool(c[ax] >= theta * cmax and dims[ax] > 2)
                  for ax in range(len(dims)))
 

@@ -43,6 +43,14 @@
                                                    # only
 
     solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128,) * 3,
+                           flavor="device",        # structured, grids
+                           refreshable=True)       # recorded
+    solver.refresh(a_shifted)                      # A + s·I on the same
+                                                   # grid and offsets: the
+                                                   # cached axes and
+                                                   # transfers, new values
+
+    solver = amg.AMGSolver(a, amg.AMGParams(), grid=(128,) * 3,
                            flavor="device")        # setup kernels on the
                                                    # card (PMIS: direct
                                                    # interpolation only)
@@ -69,14 +77,17 @@ import torch
 
 from .amg.hierarchy import (
     Hierarchy, amg_setup, check_supported, fine_host_operator,
-    fine_operator, hierarchy_stats,
+    fine_operator, hierarchy_stats, is_structured,
 )
 from .amg.params import AMGParams
-from .amg.refresh import PatternChangedError, SetupCache, amg_refresh
+from .amg.refresh import (
+    PatternChangedError, SetupCache, StructuredCache, amg_refresh,
+    structured_refresh,
+)
 from .amg.vcycle import vcycle
 from .native import CsrMatvec
-from .solvers.cg import amg_pcg
-from .solvers.graph import drop_graphs
+from .solvers.cg import amg_pcg, recapture
+from .solvers.graph import captured_keys, drop_graphs
 from .solvers.ir import solve_ir, solve_ir_device
 from .sparse.formats import Dia
 from .utils.device import resolve_device
@@ -106,7 +117,18 @@ class AMGSolver:
 
     ``flavor="device"`` runs the single-device setup's own kernels on the
     device (:func:`~.amg.hierarchy.amg_setup`); it raises ValueError with
-    ``mesh`` or ``refreshable=True``.
+    ``mesh``.
+
+    ``refreshable=True`` records the setup for :meth:`refresh`. Three
+    refreshes exist: on one device, the classical (PMIS) host setup's
+    (``SetupCache``, :func:`~.amg.refresh.amg_refresh`) and the structured
+    setup's of either flavor (``StructuredCache``,
+    :func:`~.amg.refresh.structured_refresh`); on a mesh, the per-shard
+    PMIS setup's (``DistSetupCache``). It raises ValueError with the
+    device-flavor PMIS setup, which keeps no record, and with ``grid=`` on
+    a mesh. ``refresh_counts`` counts the refreshes, ``{"refreshed": n,
+    "fell_back": m}``: those that kept the recorded setup, and those that
+    ran a fresh setup instead.
     """
 
     def __init__(self, a, params: AMGParams = AMGParams(), *, device="cuda",
@@ -114,6 +136,8 @@ class AMGSolver:
                  agg_rows_per_dev: int = 2048, flavor: str = "host",
                  refreshable: bool = False):
         self.mesh = mesh
+        self.flavor = flavor
+        self.refresh_counts = {"refreshed": 0, "fell_back": 0}
         self._dist = None
         self._dist_vcycle = None
         self._cache = None
@@ -121,17 +145,22 @@ class AMGSolver:
         if flavor not in ("host", "device"):
             raise ValueError(f"flavor must be 'host' or 'device', got "
                              f"{flavor!r}")
-        if flavor == "device" and (mesh is not None or refreshable):
-            # the reference drops the flag silently on a mesh, and its setup
-            # cache refuses the device flavor: refuse both here
-            raise ValueError("flavor='device' runs the single-device setup "
-                             "without a setup cache: it does not combine "
-                             "with mesh= or refreshable=True")
-        if refreshable and grid is not None:
+        if flavor == "device" and mesh is not None:
+            # the reference drops the flag silently on a mesh: refuse it
+            raise ValueError("flavor='device' runs the single-device setup: "
+                             "it does not combine with mesh=")
+        structured = is_structured(a, params, grid)
+        if refreshable and flavor == "device" and not structured:
+            # the reference's setup cache refuses the device flavor
+            raise ValueError("refreshable=True records the host PMIS setup "
+                             "or a structured setup (grid=); the device "
+                             "PMIS setup keeps no record to refresh")
+        if refreshable and grid is not None and mesh is not None:
             # the reference drops the flag silently on its structured mesh
             # path and fails later in refresh(); refuse it here instead
-            raise ValueError("refreshable=True records the classical (PMIS) "
-                             "setup; it does not combine with grid=")
+            raise ValueError("refreshable=True on a mesh records the "
+                             "per-shard PMIS setup; it does not combine "
+                             "with grid=")
         check_supported(params)
         if mesh is not None:
             with span("amg.setup"):
@@ -142,9 +171,10 @@ class AMGSolver:
         self.a = a
         self.params = params
         self.last_info: dict = {}
-        # refreshable: record the symbolic setup, so that refresh(a_new)
-        # refills values only (amg/refresh.py; the classical PMIS setup)
-        self._cache = SetupCache() if refreshable else None
+        # refreshable: record the setup, so that refresh(a_new) recomputes
+        # values only (amg/refresh.py)
+        self._cache = ((StructuredCache() if structured else SetupCache())
+                       if refreshable else None)
         with span("amg.setup"):
             self.hierarchy: Hierarchy = amg_setup(
                 a, params, device=self.device, grid=grid, cache=self._cache,
@@ -377,12 +407,18 @@ class AMGSolver:
     def refresh(self, a_new):
         """Value-only re-setup: the same sparsity, new operator values.
 
-        Reuses every symbolic decision and device index tensor of the setup
-        (construct with ``refreshable=True``); when the new values change a
-        strength, interpolation or Galerkin pattern it warns and runs a
-        fresh setup, with a new cache. The certified loop then reads the
-        new operator. The captured PCG graphs of the old hierarchy are
-        dropped with it: they read its tensors."""
+        Construct with ``refreshable=True``. A PMIS setup reuses every
+        symbolic decision and device index tensor; a structured one its
+        grids, axes and transfers (:func:`~.amg.refresh.structured_refresh`).
+        When the new values change a strength, interpolation or Galerkin
+        pattern, or a structured operator's grid or offsets, it warns and
+        runs a fresh setup, with a new cache (``refresh_counts`` counts
+        both outcomes). The certified loop then reads the new operator.
+        The captured PCG graphs of the old hierarchy are dropped with it:
+        they read its tensors. On one device the refresh captures the new
+        hierarchy's graphs of the certified solves the old one had
+        (:func:`~.solvers.cg.recapture`), into the memory pool the old ones
+        held, so the next solve runs at once."""
         if self._cache is None:
             raise ValueError("construct AMGSolver(..., refreshable=True) "
                              "to enable refresh"
@@ -390,39 +426,56 @@ class AMGSolver:
                                 if self.mesh is not None else ""))
         old = self.hierarchy
         if self.mesh is not None:
-            self._refresh_dist(a_new)
+            kept = self._refresh_dist(a_new)
         else:
-            self._refresh(a_new)
-        drop_graphs(old)
+            kept = self._refresh(a_new)
+        self.refresh_counts["refreshed" if kept else "fell_back"] += 1
+        keys = captured_keys(old)
+        drop_graphs(old, self.hierarchy)
+        if self.mesh is None:
+            recapture(keys, old.levels[0].a if old.levels else None,
+                      self.hierarchy)
         self.a = a_new
         self._a_host = None
         self._a_f64 = None
         return self
 
-    def _refresh(self, a_new):
-        """The single-device branch of :meth:`refresh`."""
+    def _refresh(self, a_new) -> bool:
+        """The single-device branch of :meth:`refresh`: whether the
+        recorded setup was kept."""
+        structured = isinstance(self._cache, StructuredCache)
         try:
-            self.hierarchy = amg_refresh(a_new, self._cache)
+            self.hierarchy = (structured_refresh if structured
+                              else amg_refresh)(a_new, self._cache)
+            return True
         except PatternChangedError as e:
             import warnings
 
             warnings.warn(f"refresh pattern guard tripped ({e}); running "
                           "a full re-setup", stacklevel=3)
-            self._cache = SetupCache()
+            # a structured operator on another grid brings its own dims
+            grid = ((getattr(a_new, "dims", None) or self._cache.dims)
+                    if structured else None)
+            self._cache = StructuredCache() if structured else SetupCache()
             self.hierarchy = amg_setup(a_new, self.params, device=self.device,
-                                       cache=self._cache)
+                                       grid=grid, cache=self._cache,
+                                       flavor=self.flavor)
+            return False
 
-    def _refresh_dist(self, a_new):
+    def _refresh_dist(self, a_new) -> bool:
         """The mesh branch of :meth:`refresh`: the per-shard value-only
         refresh (:func:`~.parallel.dist_pmis_setup.dist_pmis_refresh`), or
-        on a pattern change a warning and a fresh per-shard setup."""
+        on a pattern change a warning and a fresh per-shard setup; whether
+        the recorded setup was kept."""
         from .parallel.dist_pmis_setup import (
             DistSetupCache, dist_pmis_refresh, dist_pmis_setup,
         )
 
+        kept = True
         try:
             self.hierarchy = dist_pmis_refresh(a_new, self._cache)
         except PatternChangedError as e:
+            kept = False
             import warnings
 
             warnings.warn(f"refresh pattern guard tripped ({e}); running "
@@ -434,6 +487,7 @@ class AMGSolver:
                 cache=self._cache, **part_kw)
         self._dist = None
         self._dist_vcycle = None
+        return kept
 
     @traced("amg.precondition")
     def precondition(self, r: torch.Tensor) -> torch.Tensor:

@@ -189,6 +189,39 @@ def _key(name, a, b, x0, maxiter):
     return (name, id(a), tuple(b.shape), b.dtype, x0 is None, int(maxiter))
 
 
+def _form(op) -> tuple:
+    """What of an operator or vector decides the code a cycle runs: its
+    type, offsets or taps, and value type."""
+    if isinstance(op, torch.Tensor):
+        return ("tensor", op.dtype, tuple(op.shape))
+    if isinstance(op, (int, float)):
+        return ("scalar",)
+    vals = getattr(op, "data", getattr(op, "vals", None))
+    return (type(op).__name__, getattr(op, "offsets", None),
+            getattr(op, "taps", None),
+            vals.dtype if isinstance(vals, torch.Tensor) else None)
+
+
+def _path(name, a, hier: Hierarchy, b, x0, maxiter) -> tuple:
+    """The code path of a PCG capture on ``hier``: the key without the
+    operator's identity, the parameters, and the forms of every level's
+    operators and vectors and of the coarse factor."""
+    return (name, _form(a), tuple(b.shape), b.dtype, x0 is None,
+            int(maxiter), repr(hier.params), _form(hier.coarse_chol),
+            tuple(tuple(_form(op) for op in (lv.a, lv.p, lv.r, lv.s,
+                                              lv.dinv_dev))
+                  for lv in hier.levels))
+
+
+def _amg_program(a, hier: Hierarchy, maxiter: int, variant: str):
+    def precond(r):
+        return vcycle(hier, r)
+
+    return (pipelined_program(a, precond, maxiter)
+            if variant == "pipelined" else
+            standard_program(lambda v: spmv(a, v), precond, maxiter))
+
+
 def amg_pcg(a, b: torch.Tensor, hier: Hierarchy, tol: float = 1e-8,
             maxiter: int = 500, x0=None, variant: str = "standard",
             graph: bool = True) -> CGResult:
@@ -200,15 +233,28 @@ def amg_pcg(a, b: torch.Tensor, hier: Hierarchy, tol: float = 1e-8,
     if variant not in VARIANTS:
         raise ValueError(f"variant={variant!r} (supported: "
                          f"{', '.join(VARIANTS)})")
+    return G.run(_amg_program(a, hier, maxiter, variant), b, tol, x0,
+                 graph=graph, owner=hier,
+                 key=_key(variant, a, b, x0, maxiter), keep=(a,),
+                 path=lambda: _path(variant, a, hier, b, x0, maxiter))
 
-    def precond(r):
-        return vcycle(hier, r)
 
-    program = (pipelined_program(a, precond, maxiter)
-               if variant == "pipelined" else
-               standard_program(lambda v: spmv(a, v), precond, maxiter))
-    return G.run(program, b, tol, x0, graph=graph, owner=hier,
-                 key=_key(variant, a, b, x0, maxiter), keep=(a,))
+def recapture(keys, old_a, hier: Hierarchy) -> None:
+    """Capture on ``hier`` the PCG graphs of ``keys`` (the captured keys of
+    the hierarchy it replaces, whose level-0 operator was ``old_a``) that
+    ran on that operator without ``x0``, the graphs of a certified solve,
+    on ``hier``'s own level 0: what the next solve would capture. Nothing
+    else runs (:func:`.graph.prepare`)."""
+    if not hier.levels or hier.device.type != "cuda":
+        return
+    a = hier.levels[0].a
+    for name, a_id, shape, dtype, no_x0, maxiter in keys:
+        if a_id != id(old_a) or not no_x0 or name not in VARIANTS:
+            continue
+        b = torch.zeros(shape, dtype=dtype, device=hier.device)
+        G.prepare(_amg_program(a, hier, maxiter, name), b, owner=hier,
+                  key=_key(name, a, b, None, maxiter), keep=(a,),
+                  path=lambda: _path(name, a, hier, b, None, maxiter))
 
 
 def cg(a, b: torch.Tensor, tol: float = 1e-8, maxiter: int = 500,

@@ -35,11 +35,21 @@ dict of device tensors, or of per-shard lists of them):
   (``captured: False`` and the reason);
 - ``graph=True`` on CUDA tensors: :class:`Captured`, two CUDA graphs over
   static buffers (b, the f32 ``tol``, the state), the start and a block of
-  ``BLOCK`` masked steps, captured once per (owner, key) with one private
-  memory pool and cached on the owner (the hierarchy). The host replays the
-  start and then blocks, reads one flag per block, and copies ``k``, the
-  history and the final norm once at the end. A capture failure raises; it
-  never falls back to the eager loop.
+  ``BLOCK`` masked steps, captured once per (owner, key) and cached on the
+  owner (the hierarchy). The host replays the start and then blocks, reads
+  one flag per block, and copies ``k``, the history and the final norm
+  once at the end. A capture failure raises; it never falls back to the
+  eager loop.
+
+The graphs of an owner take their memory from one private pool
+(:class:`GraphPool`, made at its first capture), which :func:`drop_graphs`
+hands on to the owner that replaces it: a refreshed hierarchy's graphs are
+captured into the memory the dropped graphs held, with no allocation from
+the device. Capture does not empty the allocator's cache first, as
+``torch.cuda.graph`` does: on a time step that refreshes its hierarchy,
+the cudaFree calls of that emptying took 15–510 ms of a capture, at random
+(the 256³ structured refresh on the H100). :func:`prepare` captures
+without running (a refresh recaptures the graphs the replaced owner held).
 
 The kernel wrappers count their launches while Python runs, that is at
 capture. :class:`Captured` therefore records each counter's increment over
@@ -49,7 +59,10 @@ counters keep counting the launches the card executed, frozen iterations
 included. The vector or scalar path of ``dia_spmv``, ``remote_halo`` and
 ``panel_spmm`` is chosen on the host from ``data_ptr()`` alignment and is
 frozen into the graph at capture; ``path_changed`` says whether the
-captured launches took another path than the eager warm-up's.
+captured launches took another path than the eager warm-up's. A caller
+that names the code path of a capture (``path``: the program and the forms
+of its operators) skips the warm-up where the pool already holds a warmed
+capture of that path, and compares the launches with that one's.
 
 Under ``torch.profiler`` a run's phases are spans (:mod:`..utils.trace`):
 ``graph.capture``, ``graph.start``, ``graph.block`` (a replay: the
@@ -59,6 +72,7 @@ interval ``enqueue_s`` times; on the eager loops one block or step),
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Callable, NamedTuple
@@ -150,6 +164,19 @@ def _clone(v):
     return [t.clone() for t in v] if isinstance(v, list) else v.clone()
 
 
+def _shapes(v):
+    """The shapes and dtypes of a state entry (a tensor or a shard list)."""
+    return ([(t.shape, t.dtype) for t in v] if isinstance(v, list)
+            else (v.shape, v.dtype))
+
+
+def _empty(shapes, dev):
+    """Uninitialised tensors of :func:`_shapes`'s ``shapes`` on ``dev``."""
+    if isinstance(shapes, list):
+        return [torch.empty(s, dtype=d, device=dev) for s, d in shapes]
+    return torch.empty(shapes[0], dtype=shapes[1], device=dev)
+
+
 def _device(v) -> torch.device:
     return _leaves(v)[0].device
 
@@ -171,7 +198,7 @@ def _add(inc: dict) -> None:
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
-def _restore(snapshot: dict) -> None:
+def restore(snapshot: dict) -> None:
     for (mod, attr), n in snapshot.items():
         setattr(mod, attr, n)
 
@@ -210,13 +237,65 @@ def _eager(program: Program, b, tol: float, x0, k_block, stats=None):
     return res
 
 
+def capture_into(graph, pool, stream, fn) -> None:
+    """Record ``fn`` into ``graph`` on ``stream``, its allocations from the
+    private pool ``pool`` (a pool handle): ``torch.cuda.graph`` without the
+    synchronisation and the emptying of the caches it begins with."""
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+
+
+@contextlib.contextmanager
+def no_gc():
+    """No garbage collection under capture: a collected object that owns a
+    CUDA graph or pinned memory frees it, a call the capture forbids."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+class GraphPool:
+    """A private memory pool, and the stream that captures into it, for the
+    CUDA graphs of one owner and of the owners that replace it. The
+    allocators (the device's and the pinned host memory's) forget a pool
+    once no graph captured in it lives, and refuse a capture into it after
+    that; a graph of one small kernel captured into it at the start
+    (``anchor``, never replayed) keeps it. The allocator reuses a freed
+    block only on the stream it was allocated on: one stream for every
+    capture lets a later capture reuse the memory of graphs already
+    dropped. ``warmed`` maps a code path to what its warmed capture
+    found: the launch increments and the loop state's shapes. Dropping the
+    object releases the pool."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.id = torch.cuda.graph_pool_handle()
+        self.anchor = torch.cuda.CUDAGraph()
+        self.warmed = {}
+        with no_gc():
+            capture_into(self.anchor, self.id, self.stream,
+                         lambda: torch.zeros(1, device=device))
+
+
 class Captured:
     """The start and a block of ``k_block`` masked steps of ``program``,
     captured as two CUDA graphs over static buffers shaped like ``b`` (and
     ``x0``). ``keep``: objects the graphs read that their owner does not
-    hold (kept alive with the graphs)."""
+    hold (kept alive with the graphs). ``warmed``: the launch increments
+    (start, block) and the state's shapes of a warmed capture of the same
+    code path, in place of a warm-up (``self.warmed`` holds them after
+    either)."""
 
-    def __init__(self, program: Program, b, x0, k_block: int, keep=()):
+    def __init__(self, program: Program, b, x0, k_block: int, keep=(),
+                 pool=None, warmed=None):
         dev = _device(b)
         t0 = time.perf_counter()
         self.k_block = k_block
@@ -225,49 +304,51 @@ class Captured:
         self.b = _clone(b)
         self.x0 = None if x0 is None else _clone(x0)
         self.tol = torch.ones((), dtype=torch.float32, device=dev)
-        stream = torch.cuda.Stream(dev)
+        self.pool = pool or GraphPool(dev)
+        stream = self.pool.stream
         stream.wait_stream(torch.cuda.current_stream(dev))
-        # warm-up on the capture stream: builds the kernel library, the
-        # cuBLAS handle and every host-side cache before capture
-        c0 = counts()
-        with torch.cuda.stream(stream):
-            st = program.start(self.b, self.tol, self.x0)
-            c1 = counts()
-            st = _block(program, st, k_block)
-            c2 = counts()
+        if warmed is None:
+            # warm-up on the capture stream: builds the kernel library, the
+            # cuBLAS handle and every host-side cache before capture, and
+            # runs the paths that the capture's launches are compared with
+            c0 = counts()
+            with torch.cuda.stream(stream):
+                st = program.start(self.b, self.tol, self.x0)
+                c1 = counts()
+                st = _block(program, st, k_block)
+                c2 = counts()
+            self.state = {name: _clone(v) for name, v in st.items()}
+            del st
+            warmed = ((_delta(c1, c0), _delta(c2, c1)),
+                      {name: _shapes(v) for name, v in self.state.items()})
+        else:
+            # the state outside the pool, as a warm-up leaves it: the start
+            # graph writes every entry
+            self.state = {name: _empty(v, dev)
+                          for name, v in warmed[1].items()}
+        self.warmed = warmed
         torch.cuda.synchronize(dev)
-        warm = (_delta(c1, c0), _delta(c2, c1))
-        self.state = {name: _clone(v) for name, v in st.items()}
-        del st
-        torch.cuda.empty_cache()    # as the capture does: the pool alone
         reserved = torch.cuda.memory_reserved(dev)
-        pool = torch.cuda.graph_pool_handle()
         self.start_graph = torch.cuda.CUDAGraph()
         self.block_graph = torch.cuda.CUDAGraph()
         c0 = counts()
-        # no garbage collection under capture: a collected object that owns
-        # a CUDA graph or pinned memory frees it, a call the capture forbids
-        # (the graph context collects once before it begins)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.start_graph, pool=pool, stream=stream):
-                _assign(self.state, program.start(self.b, self.tol, self.x0))
+        with no_gc():
+            capture_into(self.start_graph, self.pool.id, stream,
+                         lambda: _assign(self.state, program.start(
+                             self.b, self.tol, self.x0)))
             c1 = counts()
-            with torch.cuda.graph(self.block_graph, pool=pool, stream=stream):
-                _assign(self.state, _block(program, self.state, k_block))
+            capture_into(self.block_graph, self.pool.id, stream,
+                         lambda: _assign(self.state, _block(
+                             program, self.state, k_block)))
             c2 = counts()
-        finally:
-            if collecting:
-                gc.enable()
-        _restore(c0)
+        restore(c0)
         self.start_inc, self.block_inc = _delta(c1, c0), _delta(c2, c1)
         self.stats = {
             "captured": True,
             "capture_s": time.perf_counter() - t0,
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
             "solves": 0, "blocks": 0, "frozen": 0, "enqueue_s": 0.0,
-            "path_changed": warm != (self.start_inc, self.block_inc),
+            "path_changed": warmed[0] != (self.start_inc, self.block_inc),
         }
 
     def run(self, b, tol: float, x0=None):
@@ -324,26 +405,49 @@ NOT_CAPTURED = {
 
 
 def run(program: Program, b, tol: float, x0=None, *, graph: bool = True,
-        owner=None, key=None, keep=(), capture: bool = True):
+        owner=None, key=None, keep=(), capture: bool = True, path=None):
     """Run ``program`` on ``b`` (see the module docstring). On CUDA with
     ``graph=True`` the captured graphs are cached on ``owner`` under ``key``
-    (with the block size ``BLOCK``); on CPU tensors, or with
-    ``capture=False`` on any device, the eager block loop is cached there
-    instead."""
+    (with the block size ``BLOCK``; ``path`` as in :func:`prepare`); on
+    CPU tensors, or with ``capture=False`` on any device, the eager block
+    loop is cached there instead."""
     if not graph:
         return _eager(program, b, tol, x0, None)
     cache = owner.__dict__.setdefault("_graphs", {})
-    key = (key, BLOCK)
-    runner = cache.get(key)
+    runner = cache.get((key, BLOCK))
     if not capture or _device(b).type != "cuda":
         if runner is None:
-            runner = cache[key] = EagerBlocks(
+            runner = cache[(key, BLOCK)] = EagerBlocks(
                 BLOCK, NOT_CAPTURED["mesh" if not capture else "cpu"])
         return runner.run(program, b, tol, x0)
     if runner is None:
-        with span("graph.capture"):
-            runner = cache[key] = Captured(program, b, x0, BLOCK, keep)
+        runner = prepare(program, b, x0, owner=owner, key=key, keep=keep,
+                         path=path)
     return runner.run(b, tol, x0)
+
+
+def prepare(program: Program, b, x0=None, *, owner, key, keep=(),
+            path=None) -> Captured:
+    """The :class:`Captured` runner of ``program`` cached on ``owner`` under
+    ``key``, captured now if it is not there (CUDA tensors; nothing runs
+    but the warm-up). ``path``: a function that names the capture's code
+    path (a hashable value: the program and its operators' forms), or
+    None; where the owner's pool holds a warmed capture of that path, the
+    warm-up is skipped."""
+    cache = owner.__dict__.setdefault("_graphs", {})
+    runner = cache.get((key, BLOCK))
+    if runner is None:
+        pool = owner.__dict__.get("_graph_pool")
+        path = path() if path is not None else None
+        warmed = (pool.warmed.get(path)
+                  if pool is not None and path is not None else None)
+        with span("graph.capture"):
+            runner = cache[(key, BLOCK)] = Captured(
+                program, b, x0, BLOCK, keep, pool=pool, warmed=warmed)
+        owner.__dict__["_graph_pool"] = runner.pool
+        if path is not None and warmed is None:
+            runner.pool.warmed[path] = runner.warmed
+    return runner
 
 
 def graph_stats(owner) -> dict:
@@ -352,7 +456,23 @@ def graph_stats(owner) -> dict:
             getattr(owner, "_graphs", {}).items()}
 
 
-def drop_graphs(owner) -> None:
+def captured_keys(owner) -> list:
+    """The keys of the captured runners cached on ``owner``."""
+    return [key for (key, _), runner in getattr(owner, "_graphs", {}).items()
+            if isinstance(runner, Captured)]
+
+
+def drop_graphs(owner, successor=None) -> None:
     """Drop the graphs cached on ``owner`` (a hierarchy about to be
-    replaced: the graphs read its tensors)."""
+    replaced: the graphs read its tensors). With ``successor`` (the owner
+    that replaces it) their memory pool passes to it, for the graphs it
+    captures; without, the pool is released and its memory freed."""
     owner.__dict__.pop("_graphs", {}).clear()
+    pool = owner.__dict__.pop("_graph_pool", None)
+    if pool is None:
+        return
+    if successor is not None:
+        successor.__dict__["_graph_pool"] = pool
+    else:
+        del pool
+        torch.cuda.empty_cache()

@@ -345,8 +345,10 @@ def const_masks(taps, dims, device) -> list:
             & (zi + dz >= 0) & (zi + dz < nz) for dz, dy, dx in taps]
 
 
+@functools.lru_cache(maxsize=4096)
 def _tap_decompose(d: int, dims) -> Tuple[int, int, int] | None:
-    """Flat diagonal offset → (dz, dy, dx) grid tap (minimal L1 norm)."""
+    """Flat diagonal offset → (dz, dy, dx) grid tap (minimal L1 norm);
+    cached: a refresh asks again for every level."""
     nz, ny, nx = dims
     plane = ny * nx
     best = None
@@ -360,28 +362,27 @@ def _tap_decompose(d: int, dims) -> Tuple[int, int, int] | None:
     return None if best is None else best[1:]
 
 
-def to_const_dia(a: Dia, device=None) -> ConstDia | None:
-    """``Dia`` → ``ConstDia`` on ``device`` (default: the planes' device for
-    torch planes, the card for numpy planes) when the operator is a
-    masked-constant 3D stencil, else None. Raises RuntimeError when the
-    device is CUDA and CUDA is not available.
+@functools.lru_cache(maxsize=256)
+def _tap_boxes(taps, dims, device) -> torch.Tensor:
+    """(taps, nz + ny + nx) bool on ``device``: per tap and axis, the grid
+    points whose neighbour along the tap lies on the grid (the tap's box,
+    axis by axis). Cached: a host array copied to the card waits for the
+    device's queue."""
+    boxes = np.zeros((len(taps), sum(dims)), bool)
+    for k, t in enumerate(taps):
+        lo = 0
+        for n_ax, d_ax in zip(dims, t):
+            boxes[k, lo + max(0, -d_ax):lo + n_ax - max(0, d_ax)] = True
+            lo += n_ax
+    return torch.from_numpy(boxes).to(device)
 
-    The reference's detection rule, unchanged, so that both packages choose
-    the same form at every level: 3D dims, ``ny·nx % 128 == 0`` (a rule born
-    of the TPU's 128 lanes, kept for parity), every offset a tap within
-    ±1 plane and ±8 rows/columns, an interior row to sample the coefficients
-    from, and an exact box check of every diagonal (the value on the tap's
-    valid box, 0 off it). Galerkin coarse operators fail the check: their
-    boundary values are modified, not merely zeroed. Torch planes are
-    checked where they lie: only the sampled coefficients and one bool
-    reach the host.
-    """
-    on_device = isinstance(a.data, torch.Tensor)
-    if device is None:
-        device = a.data.device if on_device else "cuda"
-    # the concrete device ("cuda" → "cuda:0"), as the vectors will carry it
-    device = resolve_device(device)
-    device = torch.empty(0, device=device).device
+
+def const_shape(a: Dia):
+    """``(taps, dims, mid)`` where the shape of ``a`` lets it be a
+    masked-constant 3D stencil (the first part of :func:`to_const_dia`'s
+    rule: 3D dims, ``ny·nx % 128 == 0``, every offset a tap within ±1
+    plane and ±8 rows/columns, an interior row ``mid`` to sample the
+    coefficients from), else None."""
     if a.dims is None or len(a.dims) != 3:
         return None
     nz, ny, nx = (int(d) for d in a.dims)
@@ -398,26 +399,72 @@ def to_const_dia(a: Dia, device=None) -> ConstDia | None:
     for dz, dy, dx in taps:
         if not (0 <= zm + dz < nz and 0 <= ym + dy < ny and 0 <= xm + dx < nx):
             return None  # grid too small to sample an interior coefficient
-    mid = (zm * ny + ym) * nx + xm
-    data = a.data if on_device else np.asarray(a.data)
+    return tuple(taps), dims, (zm * ny + ym) * nx + xm
+
+
+def const_check(data: torch.Tensor, shape) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``(col, ok)`` for torch planes ``data`` of the shape ``shape``
+    (:func:`const_shape`), where they lie and with no host read: the
+    sampled coefficients and whether every plane holds its coefficient on
+    its box and 0 off it (a 0-d bool), in a few launches."""
+    taps, dims, mid = shape
     col = data[:, mid]
-    coeffs = tuple(float(v) for v in (col.double().cpu() if on_device
-                                      else col))
-    ok = torch.ones((), dtype=torch.bool, device=data.device) if on_device \
-        else True
-    for k, ((dz, dy, dx), c) in enumerate(zip(taps, coeffs)):
-        v = data[k].reshape(nz, ny, nx)
-        box = v[max(0, -dz):nz - max(0, dz),
-                max(0, -dy):ny - max(0, dy),
-                max(0, -dx):nx - max(0, dx)]
-        if on_device:   # accumulated on the device: one read at the end
-            nnz = (v != 0).sum()
-            ok = ok & (box == c).all() & (nnz == (box.numel() if c else 0))
-        elif not (np.all(box == data.dtype.type(c))
-                  and np.count_nonzero(v) == (box.size if c else 0)):
-            return None
-    if on_device and not bool(ok):
+    bz, by, bx = _tap_boxes(taps, dims, data.device).split(dims, dim=1)
+    box = (bz[:, :, None, None] & by[:, None, :, None]
+           & bx[:, None, None, :])
+    want = torch.where(box, col[:, None, None, None], 0.0)
+    return col, (data.reshape(want.shape) == want).all()
+
+
+def to_const_dia(a: Dia, device=None, checked=None) -> ConstDia | None:
+    """``Dia`` → ``ConstDia`` on ``device`` (default: the planes' device for
+    torch planes, the card for numpy planes) when the operator is a
+    masked-constant 3D stencil, else None. Raises RuntimeError when the
+    device is CUDA and CUDA is not available.
+
+    The reference's detection rule, unchanged, so that both packages choose
+    the same form at every level: the shape (:func:`const_shape`), and an
+    exact box check of every diagonal (the value on the tap's valid box, 0
+    off it). Galerkin coarse operators fail the check: their boundary
+    values are modified, not merely zeroed. Torch planes are checked where
+    they lie (:func:`const_check`): only the sampled coefficients and one
+    bool reach the host. ``checked``: those two, as host values, from a
+    check already made on these planes.
+    """
+    on_device = isinstance(a.data, torch.Tensor)
+    if device is None:
+        device = a.data.device if on_device else "cuda"
+    # the concrete device ("cuda" → "cuda:0"), as the vectors will carry it
+    device = resolve_device(device)
+    device = torch.empty(0, device=device).device
+    shape = const_shape(a)
+    if shape is None:
         return None
+    taps, dims, mid = shape
+    nz, ny, nx = dims
+    if checked is not None:
+        coeffs, ok = checked
+        if not ok:
+            return None
+    elif on_device:
+        # every plane at once: its coefficient on its box and 0 off it, the
+        # same test as the host's (the box all c, nonzeros only there)
+        col, ok = const_check(a.data, shape)
+        coeffs = tuple(float(v) for v in col.double().cpu())
+        if not bool(ok):
+            return None
+    else:
+        data = np.asarray(a.data)
+        coeffs = tuple(float(v) for v in data[:, mid])
+        for k, ((dz, dy, dx), c) in enumerate(zip(taps, coeffs)):
+            v = data[k].reshape(nz, ny, nx)
+            box = v[max(0, -dz):nz - max(0, dz),
+                    max(0, -dy):ny - max(0, dy),
+                    max(0, -dx):nx - max(0, dx)]
+            if not (np.all(box == data.dtype.type(c))
+                    and np.count_nonzero(v) == (box.size if c else 0)):
+                return None
     return ConstDia(coeffs=coeffs, offsets=tuple(int(o) for o in a.offsets),
                     taps=tuple(taps), dims=dims, device=device)
 
@@ -440,14 +487,22 @@ def bf16_lossless(values: np.ndarray) -> bool:
     return bool(torch.equal(t.to(torch.bfloat16).to(torch.float32), t))
 
 
-def dia_to_device(a: Dia, device) -> Dia:
+def bf16_check(t: torch.Tensor) -> torch.Tensor:
+    """Whether every value of ``t`` is exact in bfloat16, as a 0-d bool where
+    ``t`` lies (no host read)."""
+    return (t.to(torch.bfloat16).to(torch.float32) == t).all()
+
+
+def dia_to_device(a: Dia, device, lossless=None) -> Dia:
     """Device form of a banded operator: diagonal-major (ndiag, n) values in
     bf16 when that cast is lossless (exact for the Poisson stencils), else
     f32. Torch planes are converted and checked on ``device``, without a
-    host round trip."""
+    host round trip. ``lossless``: that check (:func:`bf16_check`) already
+    made on these planes, as a host bool."""
     if isinstance(a.data, torch.Tensor):
         t = a.data.to(device, torch.float32)
-        if torch.equal(t.to(torch.bfloat16).to(torch.float32), t):
+        if (lossless if lossless is not None else
+                torch.equal(t.to(torch.bfloat16).to(torch.float32), t)):
             t = t.to(torch.bfloat16)
     else:
         data32 = np.array(a.data, np.float32)     # an owned copy

@@ -22,7 +22,9 @@ The spans, by layer:
   ``graph.block`` (one block's replay, or one eager block or step),
   ``graph.flag`` (the host read of ``active``), ``graph.finish`` (the one
   host copy and the clone of x);
-- setup: ``setup.<label>``, each phase of :class:`SetupTrace`; with
+- setup: ``setup.<label>``, each phase of :class:`SetupTrace` (a
+  structured refresh: ``L<k> RAP``, ``L<k> lmax``, ``L<k> operator form``
+  per level and ``coarse factor``, under ``amg.refresh``); with
   ``AMGParams(rap="probe")`` the PMIS setups' ``setup.L<l> RAP probe``
   holds level l's device numeric phase of the Galerkin product alone
   (marked when its device work ends), ``setup.L<l> RAP probe copy`` the
@@ -37,7 +39,9 @@ process by the engine that gave their values (``host``, ``probe``,
 ``comb``), and each hierarchy's ``rap_engines`` names that engine per
 coarse operator; a PMIS setup's hierarchy holds ``level_rows`` and
 ``level_nnz``, each level's rows and stored nonzeros, the coarsest
-included. None of them costs anything in a solve.
+included; ``AMGSolver.refresh_counts`` counts the facade's refreshes that
+kept the recorded setup (``refreshed``) and those that ran a fresh setup
+instead (``fell_back``). None of them costs anything in a solve.
 
 :class:`SetupTrace` is the setups' per-phase trace. ``OMP_AMG_SETUP_TIMERS=1``
 prints ``[setup] <label>: <s>`` to stderr per phase (the seconds since the

@@ -891,6 +891,107 @@ def test_captured_solve_after_refresh_drops_graphs():
     assert solver.last_info["outer_iters"] == fresh.last_info["outer_iters"]
 
 
+def test_structured_refresh_captures_into_the_pool_it_passes_on():
+    """A structured refresh per step (A + 2^-j·I, the device flavor): the
+    dropped graphs' memory pool passes to the refreshed hierarchy, whose
+    capture (in the refresh: the solve captures nothing) reuses its memory
+    (it adds under a quarter of what the first capture took), its
+    captured launches take the paths of the first capture's warm-up, and
+    its certified solves take a fresh solver's counts."""
+    _need_cuda()
+    from omp_amg_tpu_torch.solvers import graph as G
+
+    n = 64
+    a = amg.poisson3d_7pt(n)
+    b = amg.default_rhs(a, seed=0).cuda().double()
+    params = amg.AMGParams(coarse_size=8)
+    solver = amg.AMGSolver(a, params, grid=(n,) * 3, flavor="device",
+                           refreshable=True)
+    solver.solve(b, device_result=True)
+    pool = solver.hierarchy.__dict__["_graph_pool"]
+    (first,) = G.graph_stats(solver.hierarchy).values()
+    for j in (0, 3, 10):
+        data = np.array(a.data, np.float64)
+        data[list(a.offsets).index(0)] += 2.0 ** -j
+        a_j = amg.Dia(data=data, offsets=a.offsets, dims=a.dims)
+        solver.refresh(a_j)
+        assert solver.hierarchy.__dict__["_graph_pool"] is pool
+        # the refresh captured the solve's graphs: the solve captures none
+        (before,) = G.graph_stats(solver.hierarchy).values()
+        assert before["captured"] and before["solves"] == 0
+        solver.solve(b, device_result=True)
+        (stats,) = G.graph_stats(solver.hierarchy).values()
+        assert stats["capture_s"] == before["capture_s"]
+        assert stats["captured"] and not stats["path_changed"]
+        assert stats["pool_bytes"] < first["pool_bytes"] / 4
+        fresh = amg.AMGSolver(a_j, params, grid=(n,) * 3, flavor="device")
+        fresh.solve(b, device_result=True)
+        assert solver.last_info["inner_iters"] == \
+            fresh.last_info["inner_iters"]
+        assert solver.last_info["rel_residual"] <= 1e-8
+    assert solver.refresh_counts == {"refreshed": 3, "fell_back": 0}
+
+
+def _same_hierarchy(x, y, where="hierarchy"):
+    """Bitwise equality of two hierarchies, walked field by field."""
+    assert type(x) is type(y), where
+    if isinstance(x, torch.Tensor):
+        assert x.dtype == y.dtype and x.shape == y.shape, where
+        assert torch.equal(x, y), where
+    elif isinstance(x, np.ndarray):
+        assert x.dtype == y.dtype and np.array_equal(x, y), where
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            _same_hierarchy(getattr(x, f.name), getattr(y, f.name),
+                            f"{where}.{f.name}")
+    elif isinstance(x, (list, tuple)):
+        assert len(x) == len(y), where
+        for i, (u, v) in enumerate(zip(x, y)):
+            _same_hierarchy(u, v, f"{where}[{i}]")
+    else:
+        assert x == y, where
+
+
+@pytest.mark.parametrize("maker,n", [(amg.poisson3d_7pt, 64),
+                                     (amg.poisson3d_27pt, 32)])
+def test_structured_refresh_graphs_replay_the_loop(maker, n):
+    """The first refresh runs the pinned loop and captures its device work
+    (``RefreshGraphs``); every later refresh replays those graphs, and its
+    hierarchy is bitwise the loop's on the same operator (planes, dinv,
+    λmax, s, forms, coarse factor), for shifts 2^-j, j 0, 2, 5, 10. A
+    product that keeps other taps is left to the loop."""
+    _need_cuda()
+    from omp_amg_tpu_torch.amg.hierarchy import _amg_setup_structured
+
+    a = maker(n)
+
+    def shifted(s):
+        data = np.array(a.data, np.float64)
+        data[list(a.offsets).index(0)] += s
+        return amg.Dia(data=data, offsets=a.offsets, dims=a.dims)
+
+    solver = amg.AMGSolver(a, amg.AMGParams(coarse_size=8), grid=a.dims,
+                           flavor="device", refreshable=True)
+    cache = solver._cache
+    solver.refresh(shifted(1.0))
+    assert cache.graphs is not None and cache.graph_refreshes == 0
+    for i, j in enumerate((0, 2, 5, 10)):
+        a_j = shifted(2.0 ** -j)
+        solver.refresh(a_j)
+        assert cache.graph_refreshes == i + 1
+        got = solver.hierarchy
+        want = _amg_setup_structured(a_j, cache.dims, cache.params,
+                                     got.device, False, cache.steps,
+                                     pinned=cache)
+        _same_hierarchy(got, want)
+    # a level whose product keeps another tap: the loop decides
+    lv = cache.graphs.levels[0]
+    cache.graphs.levels[0] = lv._replace(keep=lv.keep[1:])
+    solver.refresh(shifted(0.5))
+    assert cache.graph_refreshes == 4
+    assert solver.refresh_counts == {"refreshed": 6, "fell_back": 0}
+
+
 def test_capture_failure_raises():
     """A step that reads the device under capture fails the capture, and
     the error reaches the caller: no eager fallback."""

@@ -301,9 +301,14 @@ def test_cache_rejects_structured_setups():
     with pytest.raises(ValueError):
         port.amg_setup(a, port.AMGParams(coarsening="structured"),
                        grid=(16,) * 3, device="cpu", cache=port.SetupCache())
+    # and a structured cache the PMIS setups
     with pytest.raises(ValueError):
-        port.AMGSolver(a, port.AMGParams(), grid=(16,) * 3, device="cpu",
+        port.amg_setup(a, port.AMGParams(coarsening="pmis"), device="cpu",
+                       cache=port.StructuredCache())
+    # a refreshable structured solver records the structured cache
+    s = port.AMGSolver(a, port.AMGParams(), grid=(16,) * 3, device="cpu",
                        refreshable=True)
+    assert isinstance(s._cache, port.StructuredCache)
     with pytest.raises(ValueError, match="refreshable"):
         port.AMGSolver(a, port.AMGParams(coarsening="pmis"),
                        device="cpu").refresh(a)

@@ -162,9 +162,13 @@ def test_solver_raises_on_unported_options(monkeypatch):
                dict(device="cpu", flavor="gpu")):
         with pytest.raises(ValueError):
             port.AMGSolver(a, p, **kw)
-    # structured hierarchies do not refresh: refused at construction
-    with pytest.raises(ValueError):
-        port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), refreshable=True)
+    # structured hierarchies refresh (tests/test_torch_structured_refresh.py)
+    # on one device, both flavors
+    for flavor in ("host", "device"):
+        s = port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), device="cpu",
+                           flavor=flavor, refreshable=True)
+        assert s.refresh(a) is s and s.refresh_counts == {"refreshed": 1,
+                                                          "fell_back": 0}
     # every smoother of the reference is ported; a value outside them is not
     with pytest.raises(NotImplementedError):
         port.AMGSolver(a, port.AMGParams(smoother="gauss-seidel"))

@@ -144,10 +144,12 @@ def test_certified_solve_fused_counts_within_one(name):
 
 def test_structured_solver_options():
     a = port.poisson3d_7pt(8)
-    with pytest.raises(ValueError):
-        port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8), refreshable=True)
+    # refreshable: the structured setup is recorded, and refresh keeps it
     solver = port.AMGSolver(a, port.AMGParams(), grid=(8, 8, 8),
-                            device="cpu")
+                            device="cpu", refreshable=True)
+    assert isinstance(solver._cache, port.StructuredCache)
+    solver.refresh(a)
+    assert solver.refresh_counts == {"refreshed": 1, "fell_back": 0}
     # an 8×8 plane fails the 128-lane rule, so level 0 stays banded
     assert isinstance(solver.a_dev, port.Dia)
     z = solver.precondition(port.default_rhs(a, seed=1))
